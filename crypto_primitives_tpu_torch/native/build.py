@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+Each source in ``csrc/`` is compiled by its own ``nvcc`` process, all started
+together, into a shared library with a plain C interface (no PyTorch
+headers), and loaded with ctypes.  Libraries go into ``native/build/`` (listed
+in ``.gitignore``) under a name that carries a hash of the source and flags,
+so an edited source is rebuilt and an unchanged one is built once per
+checkout.  Nothing builds at import time: the first :func:`load` builds.
+A failed build raises with ``nvcc``'s output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
+
+# C entry points of each library: every pointer and the stream are c_void_p,
+# or ctypes would pass them as 32-bit ints.  Each returns a cudaError_t.
+SIGNATURES = {
+    "poseidon_permute": {
+        # in, out, ark, mds, modulus, n0, batch, nwords, t, alpha,
+        # full_rounds, partial_rounds, device, stream
+        "poseidon_permute": [_P, _P, _P, _P, _P, _U, _LL, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "sha256_compress": {
+        # words, out, batch, nblocks, device, stream
+        "sha256_compress": [_P, _P, _LL, _I, _I, _P],
+    },
+}
+
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=None) -> dict:
+    """Compile the named sources (all of ``SIGNATURES`` by default) that are
+    not built yet, one ``nvcc`` each, all at once.  Returns name -> library
+    path.  ``nvcc``'s output (with ``-Xptxas -v`` register counts) is kept
+    in ``build/<name>.log``."""
+    names = list(SIGNATURES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths, jobs = {}, {}
+    for name in names:
+        lib = library_path(name)
+        paths[name] = lib
+        if not lib.exists():
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, lib)
+    failures = []
+    for name, (proc, tmp, lib) in jobs.items():
+        out, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.log").write_text(out)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.cpt_error_string.argtypes = [ctypes.c_int]
+        lib.cpt_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}: {lib.cpt_error_string(err).decode()}")

@@ -1,0 +1,74 @@
+"""The Poseidon permutation kernel and its plain PyTorch version.
+
+``permute`` is the counterpart of both TPU kernels of the JAX package that
+compute this permutation: ``permute_rns`` (``ops/poseidon_rns_pallas.py``,
+over RNS residues) and ``permute_pallas`` (``ops/poseidon_pallas.py``, over
+16-bit digits).  On a CUDA tensor it launches ``csrc/poseidon_permute.cu``
+(one thread per state, CIOS Montgomery products on 32-bit words); on a CPU
+tensor it runs :func:`permute_plain`, which repeats the same arithmetic with
+the plain field tier.  There is no fallback between the two: a CUDA tensor
+the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crypto_primitives_tpu_torch.native import build
+from crypto_primitives_tpu_torch.ops import field as ff
+
+# Kernel launches in this process; chip_smoke.py resets and reads it.
+launches = 0
+
+
+def permute_plain(config, state: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch permutation of ``state`` ``(B, t, W)`` int32 Montgomery
+    words: ark, S-box x^alpha (every element in full rounds, the first in
+    partial rounds), MDS, in the reference's round order
+    (src/sponge/poseidon/mod.rs:98-121)."""
+    spec = config.field
+    ark, mds = config.tables(state.device)
+    ark, mds = ff.to_digits(ark), ff.to_digits(mds)
+    s = ff.to_digits(state)
+    half = config.full_rounds // 2
+    for r in range(config.full_rounds + config.partial_rounds):
+        s = ff.add_digits(spec, s, ark[r])
+        if r < half or r >= half + config.partial_rounds:
+            s = ff.pow_const_digits(spec, s, config.alpha)
+        else:
+            s = torch.cat([ff.pow_const_digits(spec, s[..., :1, :], config.alpha), s[..., 1:, :]], dim=-2)
+        # new[i] = sum_j mds[i][j] * s[j], one reduction per output
+        s = ff.mont_dot_digits(spec, mds, s.unsqueeze(-3))
+    return ff.from_digits(s)
+
+
+def permute(config, state: torch.Tensor) -> torch.Tensor:
+    """Poseidon permutation of ``state`` ``(B, t, W)`` int32 Montgomery words:
+    the CUDA kernel for a CUDA tensor, :func:`permute_plain` for a CPU one.
+    A (W, t) the kernel is not instantiated for makes its C entry point
+    return an error, which raises here."""
+    if state.device.type == "cpu":
+        return permute_plain(config, state)
+    if state.device.type != "cuda":
+        raise ValueError(f"poseidon_permute runs on CUDA or CPU tensors, not {state.device}")
+    spec = config.field
+    W, t = spec.require_words(), config.t
+    if state.dtype != torch.int32 or state.dim() != 3 or tuple(state.shape[1:]) != (t, W):
+        raise ValueError(f"state must be int32 (B, {t}, {W}), got {state.dtype} {tuple(state.shape)}")
+    if not state.is_contiguous():
+        raise ValueError("state must be contiguous")
+    out = torch.empty_like(state)
+    if state.shape[0] == 0:
+        return out
+    ark, mds = config.tables(state.device)
+    modulus = spec._consts(state.device)["p_words"]
+    lib = build.load("poseidon_permute")
+    err = lib.poseidon_permute(
+        state.data_ptr(), out.data_ptr(), ark.data_ptr(), mds.data_ptr(), modulus.data_ptr(),
+        spec.n0_word, state.shape[0], W, t, config.alpha, config.full_rounds,
+        config.partial_rounds, state.device.index or 0, torch.cuda.current_stream(state.device).cuda_stream,
+    )
+    build.check(lib, err, "poseidon_permute")
+    global launches
+    launches += 1
+    return out

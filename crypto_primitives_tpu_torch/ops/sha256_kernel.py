@@ -1,0 +1,96 @@
+"""The SHA-256 compression kernel and its plain PyTorch version.
+
+``compress`` is the counterpart of the JAX package's TPU kernel
+``sha256_state_pallas`` (``ops/sha256_pallas.py``): FIPS 180-4 compression of
+pre-padded big-endian words ``(B, nblocks, 16)``, chained over the blocks from
+the initial state, giving ``(B, 8)`` state words.  Words are int32 tensors
+holding uint32 bit patterns.  On a CUDA tensor it launches
+``csrc/sha256_compress.cu`` (one thread per message); on a CPU tensor it runs
+:func:`compress_plain`, the JAX XLA path's arithmetic
+(``ops/sha256.py:_compress``) in int64.  There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crypto_primitives_tpu_torch.native import build
+
+K = (
+    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
+    0x923F82A4, 0xAB1C5ED5, 0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
+    0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174, 0xE49B69C1, 0xEFBE4786,
+    0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
+    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147,
+    0x06CA6351, 0x14292967, 0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
+    0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85, 0xA2BFE8A1, 0xA81A664B,
+    0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
+    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A,
+    0x5B9CCA4F, 0x682E6FF3, 0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
+    0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2,
+)
+
+H0 = (
+    0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+    0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19,
+)
+
+M32 = 0xFFFFFFFF
+
+# Kernel launches in this process; chip_smoke.py resets and reads it.
+launches = 0
+
+
+def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def compress_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch compression: ``(B, nblocks, 16)`` -> ``(B, 8)`` int32.
+    Values are carried in int64 below 2^32 so shifts are logical."""
+    w_all = words.to(torch.int64) & M32
+    batch = words.shape[0]
+    state = [torch.full((batch,), h, dtype=torch.int64, device=words.device) for h in H0]
+    for blk in range(words.shape[1]):
+        w = list(w_all[:, blk].unbind(-1))
+        for i in range(16, 64):
+            w15, w2 = w[i - 15], w[i - 2]
+            s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
+            s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+            w.append((w[i - 16] + s0 + w[i - 7] + s1) & M32)
+        a, b, c, d, e, f, g, h = state
+        for i in range(64):
+            s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+            ch = (e & f) ^ (~e & M32 & g)
+            t1 = h + s1 + ch + K[i] + w[i]
+            s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+            maj = (a & b) ^ (a & c) ^ (b & c)
+            a, b, c, d, e, f, g, h = (t1 + s0 + maj) & M32, a, b, c, (d + t1) & M32, e, f, g
+        state = [(x + y) & M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
+    v = torch.stack(state, dim=-1)
+    return ((v ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def compress(words: torch.Tensor) -> torch.Tensor:
+    """SHA-256 compression of ``(B, nblocks, 16)`` int32 words -> ``(B, 8)``:
+    the CUDA kernel for a CUDA tensor, :func:`compress_plain` for a CPU one."""
+    if words.device.type == "cpu":
+        return compress_plain(words)
+    if words.device.type != "cuda":
+        raise ValueError(f"sha256_compress runs on CUDA or CPU tensors, not {words.device}")
+    if words.dtype != torch.int32 or words.dim() != 3 or words.shape[2] != 16:
+        raise ValueError(f"words must be int32 (B, nblocks, 16), got {words.dtype} {tuple(words.shape)}")
+    if not words.is_contiguous() or words.data_ptr() % 16:
+        raise ValueError("words must be contiguous and 16-byte aligned")
+    out = torch.empty((words.shape[0], 8), dtype=torch.int32, device=words.device)
+    if words.shape[0] == 0:
+        return out
+    lib = build.load("sha256_compress")
+    err = lib.sha256_compress(
+        words.data_ptr(), out.data_ptr(), words.shape[0], words.shape[1],
+        words.device.index or 0, torch.cuda.current_stream(words.device).cuda_stream,
+    )
+    build.check(lib, err, "sha256_compress")
+    global launches
+    launches += 1
+    return out

@@ -1,0 +1,92 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  On a machine with
+a card (and without JAX, which tests/conftest.py imports):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from crypto_primitives_tpu_torch.models.sponge import (
+    PoseidonConfig,
+    find_poseidon_ark_and_mds,
+    get_default_poseidon_parameters,
+)
+from crypto_primitives_tpu_torch.ops import poseidon_kernel, sha256_kernel
+from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FQ, BLS12_381_FR, JUBJUB_FR
+from crypto_primitives_tpu_torch.ops.sha256 import sha256
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _states(spec, rows, t, seed):
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(56), "little") % spec.p for _ in range(rows * t)]
+    vals[: t] = [spec.p - 1] * t
+    return torch.from_numpy(spec.pack(np.asarray(vals, dtype=object).reshape(rows, t)))
+
+
+def _config(spec, rate, full, partial, alpha):
+    ark, mds = find_poseidon_ark_and_mds(spec, rate, full, partial, 0)
+    return PoseidonConfig(spec, full, partial, alpha, ark, mds, rate, 1)
+
+
+@pytest.mark.parametrize("which", ["fr_rate2", "fr_rate4", "fr_rate8", "jubjub_rate2", "fq_rate2", "fr_rate1"])
+def test_poseidon_kernel_matches_plain(cuda, which):
+    cfg = {
+        "fr_rate2": lambda: get_default_poseidon_parameters(BLS12_381_FR, 2),
+        "fr_rate4": lambda: get_default_poseidon_parameters(BLS12_381_FR, 4),
+        "fr_rate8": lambda: get_default_poseidon_parameters(BLS12_381_FR, 8, True),
+        "jubjub_rate2": lambda: _config(JUBJUB_FR, 2, 8, 31, 17),
+        "fq_rate2": lambda: _config(BLS12_381_FQ, 2, 8, 60, 5),
+        "fr_rate1": lambda: _config(BLS12_381_FR, 1, 8, 31, 17),
+    }[which]()
+    states = _states(cfg.field, 300, cfg.t, 1).to(cuda)
+    before = poseidon_kernel.launches
+    got = poseidon_kernel.permute(cfg, states)
+    assert poseidon_kernel.launches == before + 1
+    want = poseidon_kernel.permute_plain(cfg, states)
+    assert torch.equal(got, want)
+
+
+def test_poseidon_kernel_refuses_what_it_does_not_take(cuda):
+    cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+    states = _states(BLS12_381_FR, 8, 3, 2).to(cuda)
+    with pytest.raises(ValueError):
+        poseidon_kernel.permute(cfg, states.transpose(0, 1))  # wrong shape
+    with pytest.raises(ValueError):
+        poseidon_kernel.permute(cfg, states[::2])  # not contiguous
+    with pytest.raises(ValueError):
+        poseidon_kernel.permute(_config(BLS12_381_FQ, 4, 8, 60, 5), _states(BLS12_381_FQ, 4, 5, 3).to(cuda))
+
+
+@pytest.mark.parametrize("nblocks", [1, 2, 3, 5])
+def test_sha256_kernel_matches_plain(cuda, nblocks):
+    g = torch.Generator(device="cuda").manual_seed(nblocks)
+    words = torch.randint(-(1 << 31), 1 << 31, (1000, nblocks, 16), dtype=torch.int64,
+                          device=cuda, generator=g).to(torch.int32)
+    before = sha256_kernel.launches
+    got = sha256_kernel.compress(words)
+    assert sha256_kernel.launches == before + 1
+    assert torch.equal(got, sha256_kernel.compress_plain(words))
+
+
+@pytest.mark.parametrize("n", [0, 55, 56, 64, 119, 120, 200])
+def test_sha256_on_the_card_matches_hashlib(cuda, n):
+    rng = np.random.default_rng(n)
+    msgs = rng.integers(0, 256, (5, n), dtype=np.uint8)
+    got = sha256(torch.from_numpy(msgs).to(cuda)).cpu().numpy()
+    for row, digest in zip(msgs, got):
+        assert bytes(digest) == hashlib.sha256(row.tobytes()).digest()

@@ -1,0 +1,80 @@
+"""The port stands alone: no JAX, nothing of the JAX package, no build at
+import time, and no silent drop to the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "crypto_primitives_tpu_torch"
+
+torch.set_num_threads(1)
+
+_PROBE = r"""
+import importlib, pkgutil, subprocess, sys
+def refuse(*a, **k):
+    raise AssertionError("a subprocess was started at import time")
+subprocess.Popen = refuse
+import crypto_primitives_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from crypto_primitives_tpu_torch.native import build
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "crypto_primitives_tpu"
+             or m.startswith("crypto_primitives_tpu."))
+assert not bad, bad
+assert not build._loaded, "a kernel library was loaded at import time"
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_build():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 15  # every module was imported
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"])
+def test_sources_import_nothing_of_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "crypto_primitives_tpu"), f"{path} imports {name}"
+
+
+def test_entry_points_without_device_need_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+    from crypto_primitives_tpu_torch.errors import DeviceUnavailable
+    from crypto_primitives_tpu_torch.models.crh import PoseidonCRH, Sha256CRH
+    from crypto_primitives_tpu_torch.models.merkle_tree.device import poseidon_device_tree, sha256_device_tree
+    from crypto_primitives_tpu_torch.models.sponge import PoseidonSpongeBatch, get_default_poseidon_parameters
+    from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FR as FR
+
+    cfg = get_default_poseidon_parameters(FR, 2)
+    leaves = np.zeros((4, 32), dtype=np.uint8)
+    calls = [
+        lambda: PoseidonSpongeBatch(cfg, batch_shape=(2,)),
+        lambda: sha256_device_tree(leaves),
+        lambda: poseidon_device_tree(FR, cfg, [1, 2, 3, 4]),
+        lambda: Sha256CRH().evaluate_batch(None, leaves),
+        lambda: PoseidonCRH(FR).evaluate_batch(cfg, torch.zeros((2, 1, 8), dtype=torch.int32)),
+    ]
+    for call in calls:
+        with pytest.raises(DeviceUnavailable):
+            call()
