@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels on one NVIDIA GPU and drive its main path.
+"""Build the PyTorch/CUDA port's kernels on one NVIDIA GPU and drive its main paths.
 
 Run from the root of the repository:  python3 chip_smoke.py
 
@@ -8,20 +8,28 @@ Phases (each prints a flushed line before and after, with its seconds):
   1. build: nvcc compiles every kernel source in crypto_primitives_tpu_torch/csrc;
   2. known answers on the card: the pinned Poseidon sponge vector and SHA-256
      against hashlib;
-  3. each kernel against its plain PyTorch version on the card, exactly;
-  4. the main path at full size: a SHA-256 and a Poseidon Merkle tree over
-     2^20 leaves each, built, proved and verified, with kernel launch counts;
-  5. times: each kernel at the main path's shapes (its output there held on
-     4096 random rows against the plain version), the plain version's time,
-     and the bound the card sets.
-It needs CUDA and the repository: without either it exits non-zero before
-printing a result.  The last line is the JSON result.
+  3. each kernel against its plain PyTorch version on the card, exactly, for
+     every instantiation (the MSM kernels on every curve they are built for);
+  4. the hashing paths at full size: a SHA-256 and a Poseidon Merkle tree
+     over 2^20 leaves each, built, proved and verified;
+  5. the curve paths at full width: the Pedersen CRH and commitment over
+     ed-on-bls12-377 (window 250 x 8, 128-byte inputs, 2^16 rows) and over
+     BLS12-381 G1 (2^14 rows), and a 2^16-leaf Pedersen Merkle tree over
+     JubJub, each held on sampled rows against the host oracle;
+  6. times: each kernel at its path's shape (its output there held on 4096
+     random rows against the plain version), the plain version's time, and
+     the bound the card sets.
+Every path runs with the kernel launch counts set to 0 just before it and
+read just after; a path whose kernel did not launch fails.  It needs CUDA and
+the repository: without either it exits non-zero before printing a result.
+The last line is the JSON result.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -33,6 +41,11 @@ T0 = time.time()
 SEED = 20261017
 LEAVES = 1 << 20
 CHECK_ROWS = 4096
+TE_ROWS = 1 << 16  # Pedersen CRH and commitment rows on ed-on-bls12-377
+SW_ROWS = 1 << 14  # the same on BLS12-381 G1
+PEDERSEN_LEAVES = 1 << 16
+SAMPLE = 64  # rows of each curve path held against the host oracle
+HOST_TOP = 8  # the Pedersen tree's top 8 levels are recomputed on the host
 
 # Pinned BLS12-381 Fr sponge output: absorb [0, 1, 2], squeeze 3
 # (tests/test_poseidon.py:121-129, the reference's src/sponge/poseidon/mod.rs:381-404).
@@ -48,6 +61,25 @@ POSEIDON_PINNED = [
 # integer pipe exceeds, so the bound is a true lower bound on time.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+
+# Operations of one grouped-MSM step: one complete addition per group.
+# msm_te: 8 Montgomery products; msm_sw: 12 variable products and 2 by 3b,
+# plus 3 by a when a != 0.
+def msm_products(curve) -> int:
+    return 8 if curve.coords == 4 else (14 if curve.a == 0 else 17)
+
+
+def general_a_curve():
+    """A curve with a != 0 for the general SW law, used only here and in the
+    tests: y^2 = x^3 - 3x + 1 over BLS12-381 Fr, generator (0, 1).  x^3 - 3x + 1
+    has no root in Fr, so the group has no point of order 2 and the complete
+    formulas hold.  Its order is not computed: the scalar field given is a
+    stand-in, and only the group law is used."""
+    from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
+    from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FR
+
+    return SWCurveSpec("test_a3_bls12_381_fr", BLS12_381_FR, BLS12_381_FR, -3, 1, 1, (0, 1))
+
 
 # Operations of one SHA-256 block: 48 schedule words at 13 operations, 64 rounds
 # at 25, 8 final additions (a rotation is one funnel shift).
@@ -134,18 +166,59 @@ def host_sha_root(leaves_np) -> bytes:
     return level[0]
 
 
+KERNELS = ("poseidon_permute", "sha256_compress", "msm_te", "msm_sw")
+
+
+def kernel_modules():
+    from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel, poseidon_kernel, sha256_kernel
+
+    return dict(zip(KERNELS, (poseidon_kernel, sha256_kernel, msm_kernel, msm_sw_kernel)))
+
+
+def drive(name: str, fn, needs):
+    """Run one path with every launch count set to 0 just before it and read
+    just after; fail unless each kernel in ``needs`` launched."""
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: m.launches for k, m in mods.items()}
+    log(f"  {name}: {time.time() - t:.3f} s; launches {counts}")
+    for k in needs:
+        require(counts[k] > 0, f"{k} launched on the path '{name}'")
+    return out, counts
+
+
+def affine_host(curve, rows):
+    """(n, 2, W) Montgomery affine words -> host (x, y) tuples."""
+    return [(int(x), int(y)) for x, y in curve.base.unpack(rows.cpu())]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
         return 1
 
-    from crypto_primitives_tpu_torch.models.crh import PoseidonCRH, PoseidonTwoToOneCRH
+    from crypto_primitives_tpu_torch.models.commitment import PedersenCommitment
+    from crypto_primitives_tpu_torch.models.crh.pedersen import bytes_to_bits_batch
+    from crypto_primitives_tpu_torch.models.crh import (
+        PedersenCRH,
+        PedersenTwoToOneCRH,
+        PoseidonCRH,
+        PoseidonTwoToOneCRH,
+        Window,
+    )
     from crypto_primitives_tpu_torch.models.merkle_tree import (
         FieldDigestDomain,
         IdentityDigestConverter,
         MerkleTreeConfig,
+        PointDigestDomain,
+        PointToBytesDigestConverter,
     )
     from crypto_primitives_tpu_torch.models.merkle_tree.device import (
+        pedersen_device_tree,
         poseidon_device_tree,
         sha256_device_tree,
     )
@@ -156,12 +229,22 @@ def main() -> int:
         get_default_poseidon_parameters,
     )
     from crypto_primitives_tpu_torch.native import build
+    from crypto_primitives_tpu_torch.ops import curve_fast, curve_sw_fast, msm_kernel, msm_sw_kernel
     from crypto_primitives_tpu_torch.ops import poseidon_kernel, sha256_kernel
+    from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+    from crypto_primitives_tpu_torch.ops.curves_known import (
+        BLS12_381_G1,
+        ED25519,
+        ED_ON_BLS12_377,
+        JUBJUB,
+        PALLAS,
+    )
     from crypto_primitives_tpu_torch.ops.fields_known import ALL_FIELDS, BLS12_381_FQ, BLS12_381_FR as FR
     from crypto_primitives_tpu_torch.ops.sha256 import bytes_to_words, padding, sha256
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    pyrng = random.Random(SEED)
 
     with Phase("phase 0: device"):
         kind = torch.cuda.get_device_name(0)
@@ -200,7 +283,7 @@ def main() -> int:
         torch.cuda.synchronize()
         log("pinned Poseidon vector and SHA-256 known answers: ok")
 
-    errs = {"poseidon_permute": 0.0, "sha256_compress": 0.0}
+    errs = dict.fromkeys(KERNELS, 0.0)
     with Phase("phase 3: kernels against plain versions"):
         configs = []
         for spec in ALL_FIELDS:
@@ -231,40 +314,65 @@ def main() -> int:
             errs["sha256_compress"] = max(errs["sha256_compress"], max_abs_err(got, want))
             require(torch.equal(got, want), f"sha256_compress == plain, {nblocks} blocks")
             log(f"  sha256_compress {nblocks} blocks: {CHECK_ROWS} messages equal")
+        # every MSM instantiation: TE (W = 8) on three curves; SW W = 8 with
+        # a = 0 and a != 0, W = 12 with a = 0.  64 doublings of a random point
+        # in groups of 3, the first rows all-zero and all-ones windows.
+        for curve, kern in ((JUBJUB, msm_kernel), (ED_ON_BLS12_377, msm_kernel), (ED25519, msm_kernel),
+                            (PALLAS, msm_sw_kernel), (BLS12_381_G1, msm_sw_kernel),
+                            (general_a_curve(), msm_sw_kernel)):
+            pts = [curve.rand_point(pyrng)]
+            for _ in range(63):
+                pts.append(curve.double_host(pts[-1]))
+            table = torch.from_numpy(fast_mod(curve).pack_table_grouped(curve, pts, 3)).cuda()
+            idx = torch.randint(0, 8, (CHECK_ROWS, table.shape[0]), dtype=torch.int32, device="cuda", generator=gen)
+            idx[0], idx[1] = 0, 7
+            got = kern.grouped_msm(curve, table, idx)
+            want = kern.grouped_msm_plain(curve, table, idx)
+            torch.cuda.synchronize()
+            name = "msm_te" if kern is msm_kernel else "msm_sw"
+            errs[name] = max(errs[name], max_abs_err(got, want))
+            require(torch.equal(got, want), f"{name} == plain on {curve.name}")
+            log(f"  {name} {curve.name} (W={curve.base.num_words}, a={'0' if curve.a == 0 else 'p-1' if curve.a == curve.base.p - 1 else curve.a - curve.base.p}): "
+                f"{CHECK_ROWS} rows x {table.shape[0]} groups equal")
 
-    with Phase("phase 4: main path at 2^20 leaves"):
-        poseidon_kernel.launches = 0
-        sha256_kernel.launches = 0
+    launches = dict.fromkeys(KERNELS, 0)
+    with Phase("phase 4: hashing paths at 2^20 leaves"):
         torch.cuda.reset_peak_memory_stats()
-
-        t = time.time()
         leaves = torch.randint(0, 256, (LEAVES, 32), dtype=torch.uint8, device="cuda", generator=gen)
-        sha_tree = sha256_device_tree(leaves, device="cuda")
-        torch.cuda.synchronize()
-        log(f"  sha256 tree built: {time.time() - t:.3f} s")
         idx = torch.arange(LEAVES, device="cuda")
-        leaf_sib, auth = sha_tree.proof_rows(idx)
-        ok = sha_tree.verify_rows_batch(sha_tree.root_row(), sha_tree.leaf_digests, idx, leaf_sib, auth)
-        require(bool(ok.all()), "every SHA-256 auth path verifies")
-        bad = sha_tree.verify_rows_batch(torch.zeros_like(sha_tree.root_row()), sha_tree.leaf_digests[:64],
-                                         idx[:64], leaf_sib[:64], auth[:64])
-        require(not bool(bad.any()), "a wrong SHA-256 root is rejected")
-        del leaf_sib, auth, ok
         sel = torch.randperm(LEAVES, device="cuda", generator=gen)[:CHECK_ROWS].sort().values
-        m_sib, m_auth = sha_tree.proof_rows(sel)
-        require(bool(sha_tree.multipath_verify_rows(sha_tree.root_row(), sha_tree.leaf_digests[sel],
+
+        def sha_path():
+            t = time.time()
+            tree = sha256_device_tree(leaves, device="cuda")
+            torch.cuda.synchronize()
+            log(f"  sha256 tree built: {time.time() - t:.3f} s")
+            leaf_sib, auth = tree.proof_rows(idx)
+            ok = tree.verify_rows_batch(tree.root_row(), tree.leaf_digests, idx, leaf_sib, auth)
+            require(bool(ok.all()), "every SHA-256 auth path verifies")
+            bad = tree.verify_rows_batch(torch.zeros_like(tree.root_row()), tree.leaf_digests[:64],
+                                         idx[:64], leaf_sib[:64], auth[:64])
+            require(not bool(bad.any()), "a wrong SHA-256 root is rejected")
+            del leaf_sib, auth, ok
+            m_sib, m_auth = tree.proof_rows(sel)
+            require(bool(tree.multipath_verify_rows(tree.root_row(), tree.leaf_digests[sel],
                                                     sel.tolist(), m_sib, m_auth)),
-                "SHA-256 multipath verify over 4096 leaves")
+                    "SHA-256 multipath verify over 4096 leaves")
+            return tree
+
+        sha_tree, counts = drive("SHA-256 tree: build, verify all, wrong root, multipath", sha_path,
+                                 ["sha256_compress"])
+        launches["sha256_compress"] += counts["sha256_compress"]
         t = time.time()
         host_root = host_sha_root(leaves.cpu().numpy())
         require(sha_tree.root() == host_root, "SHA-256 device root == hashlib root")
         log(f"  sha256 root {host_root.hex()} == hashlib build ({time.time() - t:.2f} s on the host)")
 
-        t = time.time()
         pleaves = random_elements(FR, (LEAVES,), gen)
-        pos_tree = poseidon_device_tree(FR, cfg, pleaves, device="cuda")
-        torch.cuda.synchronize()
-        log(f"  poseidon tree built: {time.time() - t:.3f} s")
+        pos_tree, counts = drive("Poseidon tree: build",
+                                 lambda: poseidon_device_tree(FR, cfg, pleaves, device="cuda"),
+                                 ["poseidon_permute"])
+        launches["poseidon_permute"] += counts["poseidon_permute"]
         mc = MerkleTreeConfig(PoseidonCRH(FR), PoseidonTwoToOneCRH(FR), FieldDigestDomain(FR),
                               FieldDigestDomain(FR), IdentityDigestConverter())
         root = pos_tree.root()
@@ -274,66 +382,190 @@ def main() -> int:
             require(pos_tree.generate_proof(i).verify(mc, cfg, cfg, root, [leaf]),
                     f"Poseidon auth path {i} reaches the device root on the host sponge")
         log(f"  poseidon root {root}: 64 auth paths verified by the host sponge")
-        launches = {"poseidon_permute": poseidon_kernel.launches, "sha256_compress": sha256_kernel.launches}
-        log(f"  kernel launches on the main path: {launches}")
         log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        require(all(n > 0 for n in launches.values()), "every kernel launched on the main path")
 
-    with Phase("phase 5: times"):
+    breakdown = {}
+    with Phase("phase 5: curve paths at full width"):
+        torch.cuda.reset_peak_memory_stats()
+        window = Window(250, 8)  # benches/crh.rs: 128-byte inputs fill 1024 of its 2000 bits
+        main_shapes = {}
+        for curve, rows, kname in ((ED_ON_BLS12_377, TE_ROWS, "msm_te"), (BLS12_381_G1, SW_ROWS, "msm_sw")):
+            t = time.time()
+            crh = PedersenCRH(curve, window)
+            params = crh.setup(random.Random(SEED))
+            com = PedersenCommitment(curve, window)
+            cparams = com.setup(random.Random(SEED + 1))
+            params.packed_grouped(), cparams.packed_grouped(), cparams.crh_params().packed_grouped()
+            log(f"  {curve.name}: setup and grouped tables on the host {time.time() - t:.2f} s")
+            inputs = torch.randint(0, 256, (rows, 128), dtype=torch.uint8, device="cuda", generator=gen)
+            digests, counts = drive(f"Pedersen CRH evaluate_batch, {curve.name}, {rows} rows",
+                                    lambda: crh.evaluate_batch(params, inputs), [kname])
+            launches[kname] += counts[kname]
+            sample = torch.randperm(rows, generator=torch.Generator().manual_seed(SEED))[:SAMPLE]
+            host = [crh.evaluate(params, bytes(inputs[i].cpu().numpy())) for i in sample.tolist()]
+            require(affine_host(curve, digests[sample]) == [(0, 0) if h is None else h for h in host],
+                    f"{SAMPLE} CRH rows == host evaluate on {curve.name}")
+            log(f"  {SAMPLE} sampled CRH digests equal the host evaluate")
+
+            scalars = [com.rand_randomness(pyrng) for _ in range(rows)]
+            rbits = torch.from_numpy(com.randomness_to_bits(scalars)).cuda()
+            comms, counts = drive(f"Pedersen commit_batch, {curve.name}, {rows} rows",
+                                  lambda: com.commit_batch(cparams, inputs, rbits), [kname])
+            launches[kname] += counts[kname]
+            host = [com.commit(cparams, bytes(inputs[i].cpu().numpy()), scalars[i]) for i in sample.tolist()]
+            require(affine_host(curve, comms[sample]) == [(0, 0) if h is None else h for h in host],
+                    f"{SAMPLE} commitments == host commit on {curve.name}")
+            log(f"  {SAMPLE} sampled commitments equal the host commit")
+
+            # where the CRH's time goes: the grouped MSM, then the affine step
+            mod = fast_mod(curve)
+            t = time.time()
+            acc = crh.evaluate_batch_projective(params, inputs)
+            torch.cuda.synchronize()
+            t_msm = time.time() - t
+            t = time.time()
+            mod.to_affine(curve, acc)
+            torch.cuda.synchronize()
+            t_aff = time.time() - t
+            breakdown[curve.name] = (t_msm, t_aff)
+            log(f"  {curve.name} CRH split: grouped MSM step {t_msm:.3f} s, to-affine {t_aff:.3f} s")
+            # the CRH's own MSM operands: the table's first ceil(1024 / 3) =
+            # 342 of 667 groups, the ones the 128-byte inputs reach
+            table, idx = curve_fast.grouped_operands(mod.device_table(params, 3, inputs.device),
+                                                     bytes_to_bits_batch(inputs), 3)
+            main_shapes[kname] = (curve, table, idx)
+            del acc, digests, comms
+
+        # the Pedersen Merkle tree (tests/test_merkle_pedersen.py:28-43)
+        curve, leaf_window, two_window = JUBJUB, Window(4, 16), Window(4, 256)
+        leaf_crh, two = PedersenCRH(curve, leaf_window), PedersenTwoToOneCRH(curve, two_window)
+        tree_rng = random.Random(77)
+        leaf_params, two_params = leaf_crh.setup(tree_rng), two.setup(tree_rng)
+        pleaves = torch.randint(0, 256, (PEDERSEN_LEAVES, 8), dtype=torch.uint8, device="cuda", generator=gen)
+        ped_tree, counts = drive(f"Pedersen tree over JubJub: build, {PEDERSEN_LEAVES} leaves",
+                                 lambda: pedersen_device_tree(curve, leaf_params, two_params, leaf_window,
+                                                              two_window, pleaves), ["msm_te"])
+        launches["msm_te"] += counts["msm_te"]
+        sel = torch.randperm(PEDERSEN_LEAVES, device="cuda", generator=gen)[:CHECK_ROWS]
+
+        def verify_path():
+            leaf_sib, auth = ped_tree.proof_rows(sel)
+            ok = ped_tree.verify_rows_batch(ped_tree.root_row(), ped_tree.leaf_digests[sel], sel, leaf_sib, auth)
+            bad_root = ped_tree.root_row().clone()
+            bad_root[0] ^= 1
+            bad = ped_tree.verify_rows_batch(bad_root, ped_tree.leaf_digests[sel[:64]], sel[:64],
+                                             leaf_sib[:64], auth[:64])
+            return ok, bad
+
+        (ok, bad), counts = drive(f"Pedersen tree: verify {CHECK_ROWS} paths and a wrong root",
+                                  verify_path, ["msm_te"])
+        launches["msm_te"] += counts["msm_te"]
+        require(bool(ok.all()), f"{CHECK_ROWS} Pedersen auth paths verify on the card")
+        require(not bool(bad.any()), "a wrong Pedersen root is rejected")
+        # the top HOST_TOP levels again on the host, from the device's level below
+        t = time.time()
+        cur = [ped_tree.to_host(r) for r in ped_tree.inner_levels[HOST_TOP].cpu().numpy()]
+        while len(cur) > 1:
+            cur = [two.compress(two_params, cur[i], cur[i + 1]) for i in range(0, len(cur), 2)]
+        require(cur[0] == ped_tree.root(), "Pedersen root == host recomputation of the top levels")
+        pc = MerkleTreeConfig(leaf_crh, two, PointDigestDomain(curve), PointDigestDomain(curve),
+                              PointToBytesDigestConverter(curve))
+        for i in sel[:16].tolist():
+            require(ped_tree.generate_proof(i).verify(pc, leaf_params, two_params, ped_tree.root(),
+                                                      bytes(pleaves[i].cpu().numpy())),
+                    f"Pedersen auth path {i} verifies on the host")
+        log(f"  Pedersen root {ped_tree.root()}: top {HOST_TOP} levels recomputed on the host, "
+            f"16 auth paths verified by the host CRHs ({time.time() - t:.2f} s on the host)")
+        # where the tree's time goes, on its two largest levels
+        for lname, crh_, params_, data in (
+            ("leaf level", leaf_crh, leaf_params, pleaves),
+            ("first inner level", two.crh, two_params,
+             ped_tree.leaf_digests.reshape(PEDERSEN_LEAVES // 2, -1)),
+        ):
+            t = time.time()
+            acc = crh_.evaluate_batch_projective(params_, data)
+            torch.cuda.synchronize()
+            t_msm = time.time() - t
+            t = time.time()
+            curve_fast.to_affine(curve, acc)
+            torch.cuda.synchronize()
+            log(f"  Pedersen tree {lname} ({data.shape[0]} rows): grouped MSM step {t_msm:.3f} s, "
+                f"to-affine {time.time() - t:.3f} s")
+        log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    with Phase("phase 6: times"):
         half = LEAVES // 2
         # one whole level of 2^19 compressions, as the trees launch them
         level = pos_tree.leaf_digests.reshape(half, 2, 8)
         pstates = torch.cat([torch.zeros((half, 1, 8), dtype=torch.int32, device="cuda"), level], dim=1).contiguous()
-        pos_ms = median_ms(lambda: poseidon_kernel.permute(cfg, pstates), reps=10)
         conv = torch.cat([torch.tensor(list((32).to_bytes(8, "little")), dtype=torch.uint8, device="cuda")
                           .expand(LEAVES, 8), sha_tree.leaf_digests], dim=1).reshape(half, 80)
         msgs = torch.cat([conv, torch.from_numpy(padding(80)).cuda().expand(half, -1)], dim=1)
         swords = bytes_to_words(msgs)
-        sha_ms = median_ms(lambda: sha256_kernel.compress(swords), reps=20)
-        # the kernels at the full timed batch, held on a seeded random subset
-        # of its rows against the plain versions on the same rows
-        rows = torch.randperm(half, device="cuda", generator=gen)[:CHECK_ROWS]
-        for name, got, want in (
-            ("poseidon_permute", poseidon_kernel.permute(cfg, pstates)[rows],
-             poseidon_kernel.permute_plain(cfg, pstates[rows].contiguous())),
-            ("sha256_compress", sha256_kernel.compress(swords)[rows],
-             sha256_kernel.compress_plain(swords[rows].contiguous())),
-        ):
+        te_curve, te_table, te_idx = main_shapes["msm_te"]
+        sw_curve, sw_table, sw_idx = main_shapes["msm_sw"]
+        # (kernel, plain version, input at the path's shape, kernel reps, plain
+        # reps); the MSMs' plain versions take seconds at 4096 rows and were
+        # already run warm in phase 3, so they are timed once, without warm-up
+        calls = {
+            "poseidon_permute": (lambda x: poseidon_kernel.permute(cfg, x),
+                                 lambda x: poseidon_kernel.permute_plain(cfg, x), pstates, 10, 3),
+            "sha256_compress": (sha256_kernel.compress, sha256_kernel.compress_plain, swords, 20, 3),
+            "msm_te": (lambda x: msm_kernel.grouped_msm(te_curve, te_table, x),
+                       lambda x: msm_kernel.grouped_msm_plain(te_curve, te_table, x), te_idx, 10, 1),
+            "msm_sw": (lambda x: msm_sw_kernel.grouped_msm(sw_curve, sw_table, x),
+                       lambda x: msm_sw_kernel.grouped_msm_plain(sw_curve, sw_table, x), sw_idx, 5, 1),
+        }
+        times, plain_times = {}, {}
+        for name, (kernel, plain, x, reps, plain_reps) in calls.items():
+            times[name] = median_ms(lambda: kernel(x), reps=reps)
+            # the kernel at the full timed batch, held on a seeded random
+            # subset of its rows against the plain version on the same rows
+            rows = torch.randperm(x.shape[0], device="cuda", generator=gen)[:CHECK_ROWS]
+            got, want = kernel(x)[rows], plain(x[rows].contiguous())
             errs[name] = max(errs[name], max_abs_err(got, want))
-            require(torch.equal(got, want), f"{name} == plain on {CHECK_ROWS} rows of the {half}-row batch")
-            log(f"  {name} at {half} rows: {CHECK_ROWS} random rows equal to the plain version")
-        small_p = pstates[:CHECK_ROWS].contiguous()
-        small_s = swords[:CHECK_ROWS].contiguous()
-        pos_plain_ms = median_ms(lambda: poseidon_kernel.permute_plain(cfg, small_p), reps=3, warmup=1)
-        sha_plain_ms = median_ms(lambda: sha256_kernel.compress_plain(small_s), reps=3, warmup=1)
+            require(torch.equal(got, want), f"{name} == plain on {CHECK_ROWS} rows of the {x.shape[0]}-row batch")
+            log(f"  {name} at {x.shape[0]} rows: {CHECK_ROWS} random rows equal to the plain version")
+            small = x[:CHECK_ROWS].contiguous()
+            plain_times[name] = median_ms(lambda: plain(small), reps=plain_reps, warmup=1 if plain_reps > 1 else 0)
+
+        def msm_bound(curve, table, idx):
+            W = curve.base.num_words
+            nbytes = idx.numel() * 4 + idx.shape[0] * curve.coords * W * 4 + table.numel() * 4
+            return nbytes, idx.numel() * msm_products(curve) * 2 * (4 * W * W + W)
 
         tables = sum(x.numel() * 4 for x in cfg.tables(pstates.device))
-        pos_bytes = 2 * pstates.numel() * 4 + tables + 32
-        pos_ops = half * poseidon_ops(cfg)
-        sha_bytes = swords.numel() * 4 + half * 32
-        sha_ops = half * swords.shape[1] * SHA_OPS_PER_BLOCK
-
-        def bound(nbytes, nops):
-            tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
-            return (tb, "bytes") if tb >= to else (to, "operations")
-
+        work = {
+            "poseidon_permute": (2 * pstates.numel() * 4 + tables + 32, half * poseidon_ops(cfg)),
+            "sha256_compress": (swords.numel() * 4 + half * 32, half * swords.shape[1] * SHA_OPS_PER_BLOCK),
+            "msm_te": msm_bound(te_curve, te_table, te_idx),
+            "msm_sw": msm_bound(sw_curve, sw_table, sw_idx),
+        }
+        sources = {
+            "poseidon_permute": ("crypto_primitives_tpu_torch/csrc/poseidon_permute.cu",
+                                 "crypto_primitives_tpu/ops/poseidon_rns_pallas.py:609, "
+                                 "crypto_primitives_tpu/ops/poseidon_pallas.py:412"),
+            "sha256_compress": ("crypto_primitives_tpu_torch/csrc/sha256_compress.cu",
+                                "crypto_primitives_tpu/ops/sha256_pallas.py:136"),
+            "msm_te": ("crypto_primitives_tpu_torch/csrc/msm_te.cu", "crypto_primitives_tpu/ops/msm_rns_pallas.py:360"),
+            "msm_sw": ("crypto_primitives_tpu_torch/csrc/msm_sw.cu",
+                       "crypto_primitives_tpu/ops/msm_sw_rns_pallas.py:423"),
+        }
         kernels = []
-        for name, src, replaces, ms, plain, (b_ms, b_by) in (
-            ("poseidon_permute", "crypto_primitives_tpu_torch/csrc/poseidon_permute.cu",
-             "crypto_primitives_tpu/ops/poseidon_rns_pallas.py:609, crypto_primitives_tpu/ops/poseidon_pallas.py:412",
-             pos_ms, pos_plain_ms, bound(pos_bytes, pos_ops)),
-            ("sha256_compress", "crypto_primitives_tpu_torch/csrc/sha256_compress.cu",
-             "crypto_primitives_tpu/ops/sha256_pallas.py:136",
-             sha_ms, sha_plain_ms, bound(sha_bytes, sha_ops)),
-        ):
+        for name in KERNELS:
+            nbytes, nops = work[name]
+            tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
+            b_ms, b_by = (tb, "bytes") if tb >= to else (to, "operations")
+            src, replaces = sources[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[name], "max_abs_err": errs[name],
-                "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": times[name], "plain_ms": plain_times[name], "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,
             })
-            log(f"  {name}: {ms:.4f} ms at {half} rows, bound {b_ms:.4f} ms ({b_by}), "
-                f"plain {plain:.2f} ms at {CHECK_ROWS} rows, {launches[name]} launches")
+            log(f"  {name}: {times[name]:.4f} ms at {calls[name][2].shape[0]} rows, bound {b_ms:.4f} ms ({b_by}; "
+                f"bytes alone {tb:.4f} ms, operations alone {to:.4f} ms), "
+                f"plain {plain_times[name]:.2f} ms at {CHECK_ROWS} rows, {launches[name]} launches")
 
     log(f"total seconds: {time.time() - T0:.1f}")
     log(smi_line)

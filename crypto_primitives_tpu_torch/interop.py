@@ -2,14 +2,18 @@
 
 The JAX package and the port hold the same field elements in the same
 Montgomery form (R = 2^(16 L)); they differ only in how the digits are laid
-out.  These functions take the JAX package's data as numpy arrays and Python
-ints, never JAX objects, so the port imports nothing of JAX.
+out, so a JAX limb array (a field element, or a curve point in the same
+coordinate order) becomes port words without arithmetic.  These functions
+take the JAX package's data as numpy arrays and Python ints, never JAX
+objects, so the port imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from crypto_primitives_tpu_torch.models.commitment.pedersen import PedersenCommitmentParameters
+from crypto_primitives_tpu_torch.models.crh.pedersen import PedersenParameters
 from crypto_primitives_tpu_torch.models.sponge.poseidon import PoseidonConfig
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 from crypto_primitives_tpu_torch.ops.fields_known import ALL_FIELDS, BLS12_381_FQ
@@ -21,6 +25,23 @@ def field_for_modulus(modulus: int) -> FieldSpec:
         if spec.p == int(modulus):
             return spec
     return FieldSpec(f"custom_{int(modulus).bit_length()}_bit", int(modulus))
+
+
+def _points(pts):
+    return [None if pt is None else (int(pt[0]), int(pt[1])) for pt in pts]
+
+
+def pedersen_parameters(curve, generators) -> PedersenParameters:
+    """The JAX package's Pedersen CRH generators (a list of windows, each a
+    list of host (x, y) int tuples) -> the port's PedersenParameters."""
+    return PedersenParameters(curve, [_points(win) for win in generators])
+
+
+def commitment_parameters(curve, randomness_generator, generators) -> PedersenCommitmentParameters:
+    """The JAX package's Pedersen commitment parameters (blinding powers and
+    window generators, host int tuples) -> the port's."""
+    return PedersenCommitmentParameters(curve, _points(randomness_generator),
+                                        [_points(win) for win in generators])
 
 
 def words_from_limbs(limbs) -> np.ndarray:

@@ -10,9 +10,9 @@ Construction is one batched leaf-hash call plus one batched two-to-one call
 per level, on ``device``; the levels are then kept as numpy arrays, and proof
 generation, verification and updates run on the host over them, mirroring the
 reference's control flow.  ``verify_paths_batch`` verifies many proofs in one
-batched pass.  The curve-digest domain and converter of the JAX package
-(``PointDigestDomain``, ``PointToBytesDigestConverter``) come with the curve
-tier.
+batched pass.  Digests are field elements, byte strings or affine curve
+points (``PointDigestDomain``, with ``PointToBytesDigestConverter`` for the
+reference's Pedersen byte tree).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
 from crypto_primitives_tpu_torch.ops import field as ff
+from crypto_primitives_tpu_torch.ops.curve import affine_to_uncompressed_bytes
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 
 
@@ -53,6 +54,31 @@ class FieldDigestDomain:
 
     def eq_host(self, a, b) -> bool:
         return int(a) == int(b)
+
+
+class PointDigestDomain:
+    """Digests are affine curve points (the reference's primary byte-tree
+    config, src/merkle_tree/tests/mod.rs:5-50: Pedersen leaf and inner hashes
+    over JubJub): rows (2, W) int32 Montgomery words (x, y); host = (x, y)."""
+
+    def __init__(self, curve):
+        self.curve = curve
+
+    def default_host(self):
+        return self.curve.zero_host()  # Affine::default() is the identity
+
+    def zeros(self, n: int) -> np.ndarray:
+        return np.broadcast_to(self.from_host(self.default_host()), (n, 2, self.curve.base.require_words())).copy()
+
+    def to_host(self, row: np.ndarray):
+        x, y = self.curve.base.unpack(np.asarray(row))
+        return (int(x), int(y))
+
+    def from_host(self, value) -> np.ndarray:
+        return self.curve.base.pack([int(value[0]), int(value[1])])
+
+    def eq_host(self, a, b) -> bool:
+        return tuple(int(v) for v in a) == tuple(int(v) for v in b)
 
 
 class ByteDigestDomain:
@@ -109,6 +135,22 @@ class ByteDigestConverter:
     def convert_batch(self, arr: torch.Tensor) -> torch.Tensor:
         prefix = self._prefix.to(arr.device).expand(arr.shape[:-1] + (8,))
         return torch.cat([prefix, arr], dim=-1)
+
+
+class PointToBytesDigestConverter:
+    """``to_uncompressed_bytes!`` of an affine point digest: x || y bigint
+    little-endian bytes, no flags (src/merkle_tree/tests/mod.rs:30-38 over
+    src/merkle_tree/mod.rs:67-78)."""
+
+    def __init__(self, curve):
+        self.curve = curve
+
+    def convert(self, host_digest) -> bytes:
+        return self.curve.to_uncompressed_bytes(host_digest)
+
+    def convert_batch(self, rows: torch.Tensor) -> torch.Tensor:
+        """(..., 2, W) Montgomery affine -> (..., 2 * bigint_bytes) uint8."""
+        return affine_to_uncompressed_bytes(self.curve, rows)
 
 
 class FieldToBytesDigestConverter:

@@ -6,7 +6,7 @@ proof extraction, verification and updates are batched device work, and the
 host sees digests only at explicit conversion points (``root()``,
 ``generate_proof()``).
 
-Two instantiations:
+Three instantiations:
   * :func:`sha256_device_tree`: byte digests ``(n, 32)`` uint8; a whole level
     is one SHA-256 compression launch;
   * :func:`poseidon_device_tree`: digests are ``(n, W)`` Montgomery words; the
@@ -15,8 +15,11 @@ Two instantiations:
     sponge CRHs (src/crh/poseidon/mod.rs:58-79); a whole level is one
     permutation launch.  The JAX package builds this tree on RNS residues
     (``poseidon_rns_device_tree``); the port builds it on limbs, so its digest
-    rows are already canonical.
-The Pedersen tree comes with the curve tier.
+    rows are already canonical;
+  * :func:`pedersen_device_tree`: the reference's primary byte-tree config
+    (Pedersen leaf and two-to-one hashes over a TE curve); digest rows are
+    the x || y uncompressed bytes of the affine Pedersen outputs, and a whole
+    level is one grouped MSM launch plus the affine step.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
+from crypto_primitives_tpu_torch.models.crh.pedersen import PedersenCRH, PedersenParameters, Window
 from crypto_primitives_tpu_torch.models.merkle_tree import ByteDigestConverter, Path, tree_height
 from crypto_primitives_tpu_torch.models.sponge.poseidon import PoseidonConfig, permute
+from crypto_primitives_tpu_torch.ops.curve import affine_to_uncompressed_bytes
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 from crypto_primitives_tpu_torch.ops.sha256 import sha256
 
@@ -331,3 +336,54 @@ def poseidon_device_tree(spec: FieldSpec, config: PoseidonConfig, leaf_elements,
         leaf_hash, compress, leaves, to_host=lambda row: int(spec.unpack(row)),
         compress_level_batch=compress_level,
     )
+
+
+# --------------------------------------------------------------------------
+# Pedersen byte tree (the reference's primary byte-tree config,
+# src/merkle_tree/tests/mod.rs:5-50: Pedersen leaf and two-to-one hashes over
+# a TE curve, ByteDigestConverter = x || y uncompressed bytes)
+# --------------------------------------------------------------------------
+
+
+def pedersen_tree_fns(curve, leaf_params: PedersenParameters, two_params: PedersenParameters,
+                      leaf_window: Window, two_window: Window):
+    """(leaf_hash, compress, compress_level, to_host) for the Pedersen byte
+    tree.  Digest rows are the (2 * bigint_bytes,) uint8 x || y bytes of the
+    affine outputs; to_host turns a row into the (x, y) tuple of the generic
+    MerkleTree's PointDigestDomain."""
+    leaf_crh = PedersenCRH(curve, leaf_window)
+    two_crh = PedersenCRH(curve, two_window)
+    cb = curve.base.bigint_bytes
+    if 2 * 2 * cb * 8 > two_crh.input_size_bits:
+        raise ValueError("the two-to-one window is too small for two digests")
+
+    def digest(crh: PedersenCRH, params: PedersenParameters, inputs: torch.Tensor) -> torch.Tensor:
+        return affine_to_uncompressed_bytes(curve, crh.evaluate_batch(params, inputs, device=inputs.device))
+
+    def leaf_hash(leaves: torch.Tensor) -> torch.Tensor:
+        return digest(leaf_crh, leaf_params, leaves)
+
+    def compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+        return digest(two_crh, two_params, torch.cat([left, right], dim=-1))
+
+    def compress_level(cur: torch.Tensor) -> torch.Tensor:
+        # children of node i are adjacent rows, so l || r is a reshape
+        return digest(two_crh, two_params, cur.reshape(cur.shape[0] // 2, 2 * cur.shape[1]))
+
+    def to_host(row) -> tuple:
+        b = bytes(np.asarray(row).astype(np.uint8))
+        return (int.from_bytes(b[:cb], "little"), int.from_bytes(b[cb:2 * cb], "little"))
+
+    return leaf_hash, compress, compress_level, to_host
+
+
+def pedersen_device_tree(curve, leaf_params: PedersenParameters, two_params: PedersenParameters,
+                         leaf_window: Window, two_window: Window, leaves, device=None) -> DeviceMerkleTree:
+    """leaves: (n, LB) uint8.  Digest rows are the x || y uncompressed bytes
+    of affine Pedersen outputs; ``root()`` and ``generate_proof()`` give
+    affine (x, y) tuples that match the generic MerkleTree with Pedersen CRHs,
+    ``PointDigestDomain`` and ``PointToBytesDigestConverter``."""
+    leaves = torch.as_tensor(leaves, dtype=torch.uint8, device=resolve_device(device))
+    leaf_hash, compress, compress_level, to_host = pedersen_tree_fns(
+        curve, leaf_params, two_params, leaf_window, two_window)
+    return DeviceMerkleTree.build(leaf_hash, compress, leaves, to_host, compress_level_batch=compress_level)

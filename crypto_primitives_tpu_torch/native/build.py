@@ -3,7 +3,8 @@
 Each source in ``csrc/`` is compiled by its own ``nvcc`` process, all started
 together, into a shared library with a plain C interface (no PyTorch
 headers), and loaded with ctypes.  Libraries go into ``native/build/`` (listed
-in ``.gitignore``) under a name that carries a hash of the source and flags,
+in ``.gitignore``) under a name that carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags,
 so an edited source is rebuilt and an unchanged one is built once per
 checkout.  Nothing builds at import time: the first :func:`load` builds.
 A failed build raises with ``nvcc``'s output; there is no fallback.
@@ -40,6 +41,16 @@ SIGNATURES = {
         # words, out, batch, nblocks, device, stream
         "sha256_compress": [_P, _P, _LL, _I, _I, _P],
     },
+    "msm_te": {
+        # table, idx, out, host_consts, n0, batch, groups, ncombos, nwords,
+        # device, stream
+        "msm_te": [_P, _P, _P, _P, _U, _LL, _I, _I, _I, _I, _P],
+    },
+    "msm_sw": {
+        # table, idx, out, host_consts, n0, a_is_zero, batch, groups, ncombos,
+        # nwords, device, stream
+        "msm_sw": [_P, _P, _P, _P, _U, _I, _LL, _I, _I, _I, _I, _P],
+    },
 }
 
 _loaded: dict = {}
@@ -56,8 +67,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers (csrc/*.cuh) are part of every source's hash
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -13,11 +13,14 @@ port's batched tier raises :class:`UnsupportedField` for it.
 Two tiers:
   * host tier: Python-int helpers on :class:`FieldSpec` (exact), with the same
     constants as the JAX ``FieldSpec``;
-  * batched tier: ``add``, ``sub``, ``mont_mul``, ``pow_const``, ``to_mont``
-    and ``from_mont`` on ``(..., W)`` int32 tensors, on any device.  These are
+  * batched tier: ``add``, ``sub``, ``neg``, ``mont_mul``, ``mul_small``,
+    ``pow_const``, ``inv``, ``to_mont``, ``from_mont``, ``eq``, ``is_zero``
+    and ``select`` on ``(..., W)`` int32 tensors, on any device.  These are
     the plain versions: they compute on 16-bit digits held in int64, so that
-    schoolbook column sums never overflow.  The CUDA Poseidon kernel does the
-    same arithmetic on 32-bit words (``csrc/poseidon_permute.cu``).
+    schoolbook column sums never overflow.  The CUDA kernels do the same
+    arithmetic on 32-bit words (``csrc/field.cuh``).  Callers that chain many
+    operations (the curve tier) stay on digits between them with the
+    ``*_digits`` functions and convert once at each end.
 Every batched result is fully reduced (< p), as in the JAX package, so the two
 packages agree word for word and not only modulo p.
 """
@@ -198,6 +201,13 @@ class FieldSpec:
         return c
 
 
+def host_words(spec: FieldSpec, values) -> np.ndarray:
+    """Python ints, as they are (no Montgomery conversion), -> one flat
+    uint32 array of W words each: the constants a kernel takes by value."""
+    W = spec.require_words()
+    return np.frombuffer(b"".join(int(v).to_bytes(4 * W, "little") for v in values), dtype="<u4").copy()
+
+
 # ======================================================================
 # Word <-> digit conversion
 # ======================================================================
@@ -256,6 +266,12 @@ def sub_digits(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     # a - b + p lies in [1, 2p): reduce it once
     p = spec._consts(a.device)["p"]
     return _reduce(a - b + p, p, 1)
+
+
+def neg_digits(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    # p - a lies in [1, p]: reduce it once (0 maps to 0)
+    p = spec._consts(a.device)["p"]
+    return _reduce(p - a, p, 1)
 
 
 def _redc(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
@@ -358,3 +374,35 @@ def from_mont(spec: FieldSpec, a_mont: torch.Tensor) -> torch.Tensor:
     spec.require_words()
     d = to_digits(a_mont)
     return from_digits(mont_mul_digits(spec, d, spec._consts(d.device)["one_std"]))
+
+
+def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """-a mod p (0 stays 0)."""
+    spec.require_words()
+    return from_digits(neg_digits(spec, to_digits(a)))
+
+
+def mul_small(spec: FieldSpec, a: torch.Tensor, c: int) -> torch.Tensor:
+    """a * c for a constant integer c (a Montgomery product with c R)."""
+    const = torch.from_numpy(spec.pack([c])[0]).to(a.device)
+    return mont_mul(spec, a, const)
+
+
+def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Fermat inverse a^(p-2), as the JAX package computes it; 0 maps to 0."""
+    return pow_const(spec, a, spec.p - 2)
+
+
+def eq(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise equality over the word axis (values are canonical)."""
+    a, b = torch.broadcast_tensors(a, b)
+    return (a == b).all(dim=-1)
+
+
+def is_zero(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return (a == 0).all(dim=-1)
+
+
+def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """mask ? a : b, with mask shaped (...,) broadcast over the word axis."""
+    return torch.where(mask.unsqueeze(-1), a, b)

@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+the Poseidon permutation, SHA-256 compression, and both grouped MSMs on every
+curve they are built for.
 
 Every test here needs a CUDA device and skips without one.  On a machine with
 a card (and without JAX, which tests/conftest.py imports):
@@ -68,7 +70,9 @@ def test_poseidon_kernel_refuses_what_it_does_not_take(cuda):
         poseidon_kernel.permute(cfg, states.transpose(0, 1))  # wrong shape
     with pytest.raises(ValueError):
         poseidon_kernel.permute(cfg, states[::2])  # not contiguous
-    with pytest.raises(ValueError):
+    # a (W, t) with no instantiation: the C entry point refuses it, and its
+    # cudaErrorInvalidValue raises through build.check
+    with pytest.raises(RuntimeError, match="invalid argument"):
         poseidon_kernel.permute(_config(BLS12_381_FQ, 4, 8, 60, 5), _states(BLS12_381_FQ, 4, 5, 3).to(cuda))
 
 
@@ -90,3 +94,59 @@ def test_sha256_on_the_card_matches_hashlib(cuda, n):
     got = sha256(torch.from_numpy(msgs).to(cuda)).cpu().numpy()
     for row, digest in zip(msgs, got):
         assert bytes(digest) == hashlib.sha256(row.tobytes()).digest()
+
+
+def _a3_curve():
+    """y^2 = x^3 - 3x + 1 over BLS12-381 Fr (a != 0; see test_torch_curve.py)."""
+    from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
+
+    return SWCurveSpec("test_a3", BLS12_381_FR, BLS12_381_FR, -3, 1, 1, (0, 1))
+
+
+@pytest.mark.parametrize("name", ["JUBJUB", "ED_ON_BLS12_377", "ED25519", "PALLAS", "BLS12_381_G1", "A3"])
+@pytest.mark.parametrize("w", [2, 3])
+def test_msm_kernels_match_plain(cuda, name, w):
+    import random
+
+    from crypto_primitives_tpu_torch.ops import curves_known, msm_kernel, msm_sw_kernel
+    from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+
+    curve = _a3_curve() if name == "A3" else getattr(curves_known, name)
+    kern = msm_kernel if curve.coords == 4 else msm_sw_kernel
+    rng = random.Random(w)
+    pts = [curve.rand_point(rng) for _ in range(20)]  # 20 fills no whole group of 3
+    table = torch.from_numpy(fast_mod(curve).pack_table_grouped(curve, pts, w)).to(cuda)
+    g = torch.Generator(device="cuda").manual_seed(w)
+    for rows in (1, 65, 1000):
+        idx = torch.randint(0, 1 << w, (rows, table.shape[0]), dtype=torch.int32, device=cuda, generator=g)
+        if rows > 2:
+            idx[0], idx[1] = 0, (1 << w) - 1
+        before = kern.launches
+        got = kern.grouped_msm(curve, table, idx)
+        assert kern.launches == before + 1
+        assert torch.equal(got, kern.grouped_msm_plain(curve, table, idx))
+
+
+def test_msm_kernels_refuse_what_they_do_not_take(cuda):
+    from crypto_primitives_tpu_torch.ops import curves_known, msm_kernel, msm_sw_kernel
+    from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+
+    te = curves_known.JUBJUB
+    table = torch.from_numpy(fast_mod(te).pack_table_grouped(te, [te.generator] * 6, 3)).to(cuda)
+    idx = torch.zeros((4, table.shape[0]), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        msm_kernel.grouped_msm(te, table, idx.to(torch.int64))  # wrong index type
+    with pytest.raises(ValueError):
+        msm_kernel.grouped_msm(te, table, idx[:, :1].contiguous())  # wrong group count
+    with pytest.raises(ValueError):
+        msm_kernel.grouped_msm(te, table[:, :, :2].contiguous(), idx)  # not 3 coordinates
+    with pytest.raises(ValueError):
+        msm_kernel.grouped_msm(te, table, idx.cpu())  # two devices
+    # a W = 12 curve with a != 0 has no instantiation: the C entry point refuses it
+    from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
+    from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FQ
+
+    g1a = SWCurveSpec("g1_a1", BLS12_381_FQ, BLS12_381_FR, 1, 4, 1)
+    sw_table = torch.zeros((2, 8, 3, 12), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        msm_sw_kernel.grouped_msm(g1a, sw_table, torch.zeros((4, 2), dtype=torch.int32, device=cuda))

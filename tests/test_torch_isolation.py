@@ -39,7 +39,7 @@ def test_port_imports_without_jax_or_build():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 15  # every module was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 32  # every module was imported
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"])
@@ -61,19 +61,40 @@ def test_entry_points_without_device_need_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None runs there")
     from crypto_primitives_tpu_torch.errors import DeviceUnavailable
-    from crypto_primitives_tpu_torch.models.crh import PoseidonCRH, Sha256CRH
-    from crypto_primitives_tpu_torch.models.merkle_tree.device import poseidon_device_tree, sha256_device_tree
+    from crypto_primitives_tpu_torch.models.commitment import PedersenCommitment
+    from crypto_primitives_tpu_torch.models.crh import (
+        PedersenCRH,
+        PedersenTwoToOneCRH,
+        PoseidonCRH,
+        Sha256CRH,
+        Window,
+    )
+    from crypto_primitives_tpu_torch.models.merkle_tree.device import (
+        pedersen_device_tree,
+        poseidon_device_tree,
+        sha256_device_tree,
+    )
+    from crypto_primitives_tpu_torch.ops.curves_known import BLS12_381_G1, JUBJUB
     from crypto_primitives_tpu_torch.models.sponge import PoseidonSpongeBatch, get_default_poseidon_parameters
     from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FR as FR
 
     cfg = get_default_poseidon_parameters(FR, 2)
     leaves = np.zeros((4, 32), dtype=np.uint8)
+    # parameters are never touched: the device is resolved first
+    ped, two, com = PedersenCRH(JUBJUB, Window(4, 8)), PedersenTwoToOneCRH(JUBJUB, Window(4, 8)), \
+        PedersenCommitment(BLS12_381_G1, Window(4, 8))
     calls = [
         lambda: PoseidonSpongeBatch(cfg, batch_shape=(2,)),
         lambda: sha256_device_tree(leaves),
         lambda: poseidon_device_tree(FR, cfg, [1, 2, 3, 4]),
         lambda: Sha256CRH().evaluate_batch(None, leaves),
         lambda: PoseidonCRH(FR).evaluate_batch(cfg, torch.zeros((2, 1, 8), dtype=torch.int32)),
+        lambda: ped.evaluate_batch(None, leaves[:, :4]),
+        lambda: two.evaluate_batch(None, leaves[:, :2], leaves[:, :2]),
+        lambda: two.compress_batch(None, torch.zeros((2, 2, 8), dtype=torch.int32),
+                                   torch.zeros((2, 2, 8), dtype=torch.int32)),
+        lambda: com.commit_batch(None, leaves[:, :4], np.zeros((4, 255), dtype=np.uint8)),
+        lambda: pedersen_device_tree(JUBJUB, None, None, Window(4, 16), Window(4, 256), leaves[:, :8]),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
