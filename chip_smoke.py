@@ -5,11 +5,15 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 Phases (each prints a flushed line before and after, with its seconds):
   0. device: the card's name and power limit;
-  1. build: nvcc compiles every kernel source in crypto_primitives_tpu_torch/csrc;
+  1. build: nvcc compiles every kernel source in crypto_primitives_tpu_torch/csrc
+     (ptxas registers and spills of every instantiation, and the SASS
+     instruction mix of one Montgomery product where cuobjdump exists);
   2. known answers on the card: the pinned Poseidon sponge vector and SHA-256
      against hashlib;
   3. each kernel against its plain PyTorch version on the card, exactly, for
-     every instantiation (the MSM kernels on every curve they are built for);
+     every instantiation (the MSM kernels on every curve they are built for),
+     and the shared field arithmetic (csrc/field_probe.cu) against the plain
+     field tier on edge values at W = 8 and W = 12;
   4. the hashing paths at full size: a SHA-256 and a Poseidon Merkle tree
      over 2^20 leaves each, built, proved and verified;
   5. the curve paths at full width: the Pedersen CRH and commitment over
@@ -143,15 +147,24 @@ def max_abs_err(a, b) -> float:
 
 
 def poseidon_ops(config) -> int:
-    """32-bit integer operations of one permutation: each Montgomery product
-    of W words does 4W^2 + W multiply(-add)s, two operations each."""
+    """32-bit integer operations of one permutation as the kernel computes it
+    (the least work of the function at this schedule): a multiply, the
+    2W-word product of two W-word elements, is 2W^2 word multiply-adds (lo
+    and hi); a square W (W + 1); a Montgomery reduction 2W^2 + W; two
+    operations each.  Every S-box product (its squarings and multiplies)
+    takes one reduction.  A linear layer takes one multiply per matrix entry
+    it applies and one reduction per output: t^2 and t in a dense round,
+    2t - 1 and t in a sparse one (poseidon_sparse.port_schedule)."""
     W = config.field.require_words()
-    a = config.alpha
-    sbox = (a.bit_length() - 1) + (bin(a).count("1") - 1)
-    t = config.t
-    products = config.full_rounds * t * sbox + config.partial_rounds * sbox
-    products += (config.full_rounds + config.partial_rounds) * t * t
-    return products * 2 * (4 * W * W + W)
+    a, t = config.alpha, config.t
+    n_sparse, _ = config.schedule_tables("cpu")
+    sboxes = config.full_rounds * t + config.partial_rounds
+    squares = sboxes * (a.bit_length() - 1)
+    sbox_mults = sboxes * (bin(a).count("1") - 1)
+    dense = config.full_rounds + config.partial_rounds - n_sparse
+    mults = sbox_mults + dense * t * t + n_sparse * (2 * t - 1)
+    reductions = squares + sbox_mults + (dense + n_sparse) * t
+    return 2 * (squares * W * (W + 1) + mults * 2 * W * W + reductions * (2 * W * W + W))
 
 
 def host_sha_root(leaves_np) -> bytes:
@@ -167,6 +180,8 @@ def host_sha_root(leaves_np) -> bytes:
 
 
 KERNELS = ("poseidon_permute", "sha256_compress", "msm_te", "msm_sw")
+# built and checked beside them, launched by no path: csrc/field_probe.cu
+PROBE_FIELDS = ("BLS12_381_FR", "BLS12_377_FR", "BLS12_381_FQ")
 
 
 def kernel_modules():
@@ -230,7 +245,7 @@ def main() -> int:
     )
     from crypto_primitives_tpu_torch.native import build
     from crypto_primitives_tpu_torch.ops import curve_fast, curve_sw_fast, msm_kernel, msm_sw_kernel
-    from crypto_primitives_tpu_torch.ops import poseidon_kernel, sha256_kernel
+    from crypto_primitives_tpu_torch.ops import field_probe, fields_known, poseidon_kernel, sha256_kernel
     from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
     from crypto_primitives_tpu_torch.ops.curves_known import (
         BLS12_381_G1,
@@ -268,6 +283,9 @@ def main() -> int:
                     log(f"  {name}: {line.strip()[:140]}")
             build.load(name)
         log(f"build seconds: {build_s:.2f} (budget 90)")
+        mix = build.sass_mix()
+        log(f"  SASS of one mont_mul<8> (csrc/field.cuh, in a load-multiply-store kernel): "
+            f"{mix if mix is not None else 'cuobjdump not found'}")
 
     with Phase("phase 2: known answers"):
         cfg = get_default_poseidon_parameters(FR, 2, False)
@@ -294,6 +312,10 @@ def main() -> int:
                 configs.append(PoseidonConfig(spec, 8, 31, 17, ark, mds, 2, 1))
         ark, mds = find_poseidon_ark_and_mds(BLS12_381_FQ, 2, 8, 60, 0)
         configs.append(PoseidonConfig(BLS12_381_FQ, 8, 60, 5, ark, mds, 2, 1))
+        # t = 9 (the <8, 9, 1> build), and an MDS with a singular lower-right
+        # block, which runs the trivial (all dense) schedule
+        configs.append(get_default_poseidon_parameters(FR, 8, True))
+        configs.append(PoseidonConfig(FR, 8, 31, 17, cfg.ark, [[2, 3, 5], [7, 1, 1], [11, 1, 1]], 2, 1))
         for c in configs:
             states = random_elements(c.field, (CHECK_ROWS, c.t), gen)
             states[0] = 0
@@ -304,7 +326,25 @@ def main() -> int:
             err = max_abs_err(got, want)
             errs["poseidon_permute"] = max(errs["poseidon_permute"], err)
             require(torch.equal(got, want), f"poseidon_permute == plain on {c.field.name}")
-            log(f"  poseidon_permute {c.field.name} t={c.t} alpha={c.alpha}: {CHECK_ROWS} states equal")
+            log(f"  poseidon_permute {c.field.name} t={c.t} alpha={c.alpha} "
+                f"sparse rounds {c.schedule_tables('cpu')[0]}: {CHECK_ROWS} states equal")
+        # field.cuh's carry chains on every pair of edge words and 4096 random
+        # pairs, at W = 8 (two moduli) and W = 12
+        for fname in PROBE_FIELDS:
+            spec = getattr(fields_known, fname)
+            edges = field_probe.edge_values(spec)
+            pairs = [(x, y) for x in edges for y in edges]
+            a = torch.cat([torch.from_numpy(spec.pack([x for x, _ in pairs], mont=False)).cuda(),
+                           random_elements(spec, (CHECK_ROWS,), gen)])
+            b = torch.cat([torch.from_numpy(spec.pack([y for _, y in pairs], mont=False)).cuda(),
+                           random_elements(spec, (CHECK_ROWS,), gen)])
+            for op in field_probe.OPS:
+                got = field_probe.field_ops(spec, op, a, b)
+                want = field_probe.field_ops_plain(spec, op, a, b)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want), f"field probe {op} == plain on {spec.name}")
+            log(f"  field probe {spec.name} (W={spec.require_words()}): {', '.join(field_probe.OPS)} equal "
+                f"on {len(pairs)} edge pairs and {CHECK_ROWS} random pairs")
         for nblocks in (1, 2, 4):
             words = torch.randint(-(1 << 31), 1 << 31, (CHECK_ROWS, nblocks, 16), dtype=torch.int64,
                                   device="cuda", generator=gen).to(torch.int32)
@@ -534,9 +574,9 @@ def main() -> int:
             nbytes = idx.numel() * 4 + idx.shape[0] * curve.coords * W * 4 + table.numel() * 4
             return nbytes, idx.numel() * msm_products(curve) * 2 * (4 * W * W + W)
 
-        tables = sum(x.numel() * 4 for x in cfg.tables(pstates.device))
+        image_bytes = cfg.schedule_tables(pstates.device)[1].numel() * 4
         work = {
-            "poseidon_permute": (2 * pstates.numel() * 4 + tables + 32, half * poseidon_ops(cfg)),
+            "poseidon_permute": (2 * pstates.numel() * 4 + image_bytes, half * poseidon_ops(cfg)),
             "sha256_compress": (swords.numel() * 4 + half * 32, half * swords.shape[1] * SHA_OPS_PER_BLOCK),
             "msm_te": msm_bound(te_curve, te_table, te_idx),
             "msm_sw": msm_bound(sw_curve, sw_table, sw_idx),

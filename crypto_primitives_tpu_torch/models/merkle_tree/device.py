@@ -138,6 +138,13 @@ class DeviceMerkleTree:
     def root(self):
         return self.to_host(self.root_row().cpu().numpy())
 
+    def canonical_root_row(self) -> torch.Tensor:
+        """The root in canonical digest form, for comparing with a root from
+        another process (the JAX package's twin, whose RNS rows need a
+        conversion).  The port's rows are canonical already (bytes, or fully
+        reduced Montgomery words), so this is :meth:`root_row`."""
+        return self.root_row()
+
     # -- proofs ----------------------------------------------------------
 
     def proof_rows(self, indexes):
@@ -169,11 +176,15 @@ class DeviceMerkleTree:
             leaf_index=index,
         )
 
-    def verify_rows_batch(self, root_row, leaf_digests, indexes, leaf_sib, auth) -> torch.Tensor:
+    def verify_rows_batch(self, root_row, leaf_digests, indexes, leaf_sib, auth,
+                          root_canonical: bool = False) -> torch.Tensor:
         """Batched verification from already-hashed leaf digests (hash raw
         leaves with the tree's leaf hash first); returns (B,) bool, the
         reference's Ok(false) posture (mod.rs:252-294).  Equality is bitwise
-        on digest rows, which are canonical for both trees."""
+        on digest rows.  ``root_canonical`` says that ``root_row`` is in
+        canonical form (a root from another process); the JAX package then
+        canonicalizes the recomputed root, and here every row is canonical
+        already, so both settings compare the same rows."""
         dev = self.device
         idx = torch.as_tensor(indexes, dtype=torch.int64, device=dev)
         leaf_digests, leaf_sib, auth, root_row = (
@@ -204,7 +215,11 @@ class DeviceMerkleTree:
             curr = self.compress_batch(pick(is_left, curr, sib), pick(is_left, sib, curr))
             node = node >> 1
         if tuple(root_row.shape) != tuple(curr.shape[1:]):
-            raise ValueError(f"root_row must be one digest row of shape {tuple(curr.shape[1:])}")
+            raise ValueError(
+                f"root_row must be one digest row of shape {tuple(curr.shape[1:])} (got "
+                f"{tuple(root_row.shape)}); use canonical_root_row()/root_canonical=True for "
+                "roots from another process"
+            )
         return (curr == root_row).all(dim=-1)
 
     def multipath_verify_rows(self, root_row, leaf_digests, indexes: Sequence[int], leaf_sib, auth) -> torch.Tensor:

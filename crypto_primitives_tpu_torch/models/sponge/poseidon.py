@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
@@ -73,6 +74,18 @@ class PoseidonConfig:
             )
         return self._tables[key]
 
+    def schedule_tables(self, device) -> tuple:
+        """(n_sparse, image): the kernel's constant-bank image of this config
+        (``poseidon_kernel.kernel_image``: the modulus, then ark[0], the MDS,
+        pre_full, the sparse rows sp_m00 / sp_v / sp_w and the folds of the
+        sparse schedule, in Montgomery words) as an int32 tensor on
+        ``device``, built once per device."""
+        key = ("schedule", str(device))
+        if key not in self._tables:
+            n_sparse, image = poseidon_kernel.kernel_image(self)
+            self._tables[key] = (n_sparse, torch.from_numpy(image.view(np.int32)).to(device))
+        return self._tables[key]
+
 
 def permute(config: PoseidonConfig, state: torch.Tensor) -> torch.Tensor:
     """The Poseidon permutation of ``state`` ``(..., t, W)`` Montgomery words:
@@ -109,8 +122,7 @@ class PoseidonSpongeBatch:
     """
 
     def __init__(self, config: PoseidonConfig, batch_shape=(), state=None, device=None):
-        if not isinstance(config, PoseidonConfig):
-            raise TypeError(f"expected a PoseidonConfig, got {type(config).__name__}")
+        _require_config(config)
         self.config = config
         self.spec = config.field
         self.device = resolve_device(device)
@@ -284,6 +296,7 @@ class PoseidonSponge:
     """Host-side duplex sponge over Python ints (the parity oracle)."""
 
     def __init__(self, config: PoseidonConfig):
+        _require_config(config)
         self.config = config
         self.p = config.field.p
         self.state = [0] * config.t
@@ -504,27 +517,41 @@ def find_poseidon_ark_and_mds(
 
 _DEFAULT_CONFIGS: dict = {}
 
+_NO_CONFIG_HINT = (
+    "no Poseidon parameters (get_default_poseidon_parameters returns None where the "
+    "field or the rate has no default table); derive them with "
+    "find_poseidon_ark_and_mds and build a PoseidonConfig"
+)
+
+
+def _require_config(config) -> None:
+    """The sponges' check of their ``config``: ``None`` (what
+    :func:`get_default_poseidon_parameters` returns for a missing table)
+    raises :class:`MissingParameters` with the way to derive one."""
+    if config is None:
+        raise MissingParameters(_NO_CONFIG_HINT)
+    if not isinstance(config, PoseidonConfig):
+        raise TypeError(f"expected a PoseidonConfig, got {type(config).__name__}")
+
 
 def get_default_poseidon_parameters(
     spec: FieldSpec, rate: int, optimized_for_weights: bool = False
-) -> PoseidonConfig:
+) -> Optional[PoseidonConfig]:
     """traits.rs:69-102 twin (capacity always 1).
 
-    Where the JAX package returns ``None`` (no table for the field or the
-    rate), this raises :class:`MissingParameters`."""
+    Returns ``None``, as the JAX package does, where there is no table for
+    the field or none for the rate; the sponges raise
+    :class:`MissingParameters` when handed that ``None``."""
     key = (spec, rate, bool(optimized_for_weights))
     if key in _DEFAULT_CONFIGS:
         return _DEFAULT_CONFIGS[key]
     tables = _DEFAULT_PARAM_TABLES.get(spec.name)
-    row = None
-    if tables is not None:
-        params_set = tables[1] if optimized_for_weights else tables[0]
-        row = next((r for r in params_set if r[0] == rate), None)
+    if tables is None:
+        return None
+    params_set = tables[1] if optimized_for_weights else tables[0]
+    row = next((r for r in params_set if r[0] == rate), None)
     if row is None:
-        raise MissingParameters(
-            f"no default Poseidon parameter table for {spec.name} at rate {rate}; "
-            "derive one with find_poseidon_ark_and_mds and build a PoseidonConfig"
-        )
+        return None
     _, alpha, full_r, partial_r, skip = row
     ark, mds = find_poseidon_ark_and_mds(spec, rate, full_r, partial_r, skip)
     cfg = PoseidonConfig(

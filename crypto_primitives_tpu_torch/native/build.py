@@ -33,9 +33,9 @@ _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uin
 # or ctypes would pass them as 32-bit ints.  Each returns a cudaError_t.
 SIGNATURES = {
     "poseidon_permute": {
-        # in, out, ark, mds, modulus, n0, batch, nwords, t, alpha,
-        # full_rounds, partial_rounds, device, stream
-        "poseidon_permute": [_P, _P, _P, _P, _P, _U, _LL, _I, _I, _I, _I, _I, _I, _P],
+        # in, out, image, image_words, batch, nwords, t, alpha,
+        # full_rounds, partial_rounds, n_sparse, device, stream
+        "poseidon_permute": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "sha256_compress": {
         # words, out, batch, nblocks, device, stream
@@ -50,6 +50,10 @@ SIGNATURES = {
         # table, idx, out, host_consts, n0, a_is_zero, batch, groups, ncombos,
         # nwords, device, stream
         "msm_sw": [_P, _P, _P, _P, _U, _I, _LL, _I, _I, _I, _I, _P],
+    },
+    "field_probe": {
+        # op, a, b, out, host_p, n0, count, iters, nwords, device, stream
+        "field_ops": [_I, _P, _P, _P, _P, _U, _LL, _I, _I, _I, _P],
     },
 }
 
@@ -122,3 +126,46 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}: {lib.cpt_error_string(err).decode()}")
+
+
+_SASS_PROBE = r"""
+#include <cstdint>
+#include "%(header)s"
+extern "C" __global__ void one_mont_mul(const uint32_t* a, const uint32_t* b, const uint32_t* p,
+                                        uint32_t n0, uint32_t* r) {
+  uint32_t x[8], y[8], q[8], o[8];
+  for (int j = 0; j < 8; ++j) { x[j] = a[j]; y[j] = b[j]; q[j] = p[j]; }
+  mont_mul<8>(o, x, y, q, n0);
+  for (int j = 0; j < 8; ++j) r[j] = o[j];
+}
+"""
+
+
+def sass_mix(header: Path = CSRC / "field.cuh"):
+    """SASS instruction counts of one ``mont_mul<8>`` of ``header``,
+    compiled for sm_90a inside a kernel that only loads its operands, calls
+    it once and stores the result: {"IMAD": n, "IADD3": n, "other": n,
+    "total": n} (IMAD and IADD3 with their suffixes; the loads, stores and
+    the kernel's exit count as other).  None where ``cuobjdump`` is missing."""
+    import re
+
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(Path(header).read_bytes()).hexdigest()[:12]
+    src = BUILD_DIR / f"sass_probe_{tag}.cu"
+    src.write_text(_SASS_PROBE % {"header": Path(header).resolve()})
+    cubin = src.with_suffix(".cubin")
+    subprocess.run([nvcc_path(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-std=c++17", "-o", str(cubin), str(src)], check=True, capture_output=True)
+    sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)], check=True, capture_output=True,
+                          text=True).stdout
+    mix = {"IMAD": 0, "IADD3": 0, "other": 0}
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass):
+        op = m.group(1).split(".")[0]
+        if op in ("NOP", "BRA"):
+            continue
+        mix[op if op in ("IMAD", "IADD3") else "other"] += 1
+    mix["total"] = sum(mix.values())
+    return mix

@@ -1,0 +1,149 @@
+"""Time the port's four path kernels at the main paths' shapes, for one tree.
+
+Run from anywhere, on a machine with a CUDA card:
+
+    python3 crypto_primitives_tpu_torch/native/kernel_times.py [--root DIR]
+
+``--root`` names the root of a checkout of this repository (default: the one
+this file lies in); its ``crypto_primitives_tpu_torch`` package is imported,
+builds its own kernels from its own ``csrc/`` into its own build directory,
+and is timed through its public wrappers, whose contracts every version of
+the port keeps.  So two checkouts (a parent commit unpacked beside the tree,
+or a variant of a kernel) are compared on one card by running this in turns
+in one call: A, B, B, A.  Inputs are made on the card from a fixed seed:
+
+  poseidon_permute  2^19 BLS12-381 Fr states, t = 3 (one level of the
+                    2^20-leaf Poseidon tree)
+  sha256_compress   2^19 two-block messages (one level of the SHA-256 tree)
+  msm_te            2^16 rows x 342 groups, w = 3, ed-on-bls12-377 (the
+                    Pedersen CRH at window 250 x 8 on 128-byte inputs)
+  msm_sw            2^14 rows x 342 groups, w = 3, BLS12-381 G1
+
+Each time is the median of ten CUDA-event timings of single launches after a
+warm-up.  Where the root has the field probe's chain ops, it also times the
+Montgomery product alone: 132 x 8 blocks of 128 threads (eight per SM), each
+thread 1000 dependent products (``mul_chain``) or squares (``sqr_chain``) at
+W = 8 (BLS12-381 Fr) and W = 12 (BLS12-381 Fq), reported in G products/s:
+the ceiling that the field arithmetic sets for every kernel built on it.
+Prints one JSON line: the root, the card, its power limit, the times in ms,
+the product rates, and the SASS instruction mix of one mont_mul<8> of the
+root's csrc/field.cuh (from this file's own native/build.py).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import random
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve()
+SEED = 20261017
+
+
+def _own_build():
+    """This file's native/build.py, loaded by path so that it is not the
+    --root tree's copy."""
+    spec = importlib.util.spec_from_file_location("_kernel_times_build", HERE.parent / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def median_ms(fn, reps: int) -> float:
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE.parents[2])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    own_build = _own_build()
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    import crypto_primitives_tpu_torch as pkg
+
+    if Path(pkg.__file__).resolve().parent != root / "crypto_primitives_tpu_torch":
+        raise SystemExit(f"imported {pkg.__file__}, not the package under {root}")
+    from crypto_primitives_tpu_torch.models.sponge import get_default_poseidon_parameters
+    from crypto_primitives_tpu_torch.native import build
+    from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel, poseidon_kernel, sha256_kernel
+    from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+    from crypto_primitives_tpu_torch.ops.curves_known import BLS12_381_G1, ED_ON_BLS12_377
+    from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FR as FR
+
+    build.build()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = random.Random(SEED)
+
+    def words(spec, shape):
+        W = spec.require_words()
+        w = torch.randint(-(1 << 31), 1 << 31, tuple(shape) + (W,), dtype=torch.int64, device="cuda", generator=gen)
+        top = (spec.p >> (32 * (W - 1))) & 0xFFFFFFFF
+        w[..., W - 1] = torch.randint(0, top, tuple(shape), dtype=torch.int64, device="cuda", generator=gen)
+        return w.to(torch.int32)
+
+    def msm_operands(curve, rows, groups=342, w=3):
+        pts = [curve.rand_point(rng)]
+        while len(pts) < groups * w:
+            pts.append(curve.double_host(pts[-1]))
+        table = torch.from_numpy(fast_mod(curve).pack_table_grouped(curve, pts, w)).cuda()
+        idx = torch.randint(0, 1 << w, (rows, groups), dtype=torch.int32, device="cuda", generator=gen)
+        return table, idx
+
+    cfg = get_default_poseidon_parameters(FR, 2, False)
+    states = words(FR, (1 << 19, 3))
+    sha = torch.randint(-(1 << 31), 1 << 31, (1 << 19, 2, 16), dtype=torch.int64, device="cuda",
+                        generator=gen).to(torch.int32)
+    te_table, te_idx = msm_operands(ED_ON_BLS12_377, 1 << 16)
+    sw_table, sw_idx = msm_operands(BLS12_381_G1, 1 << 14)
+    calls = {
+        "poseidon_permute": lambda: poseidon_kernel.permute(cfg, states),
+        "sha256_compress": lambda: sha256_kernel.compress(sha),
+        "msm_te": lambda: msm_kernel.grouped_msm(ED_ON_BLS12_377, te_table, te_idx),
+        "msm_sw": lambda: msm_sw_kernel.grouped_msm(BLS12_381_G1, sw_table, sw_idx),
+    }
+    times = {name: median_ms(fn, 10) for name, fn in calls.items()}
+    rates = {}
+    if importlib.util.find_spec("crypto_primitives_tpu_torch.ops.field_probe") is not None:
+        from crypto_primitives_tpu_torch.ops import field_probe
+        from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FQ
+
+        if "mul_chain" in field_probe.OPS:
+            count, iters = 132 * 8 * 128, 1000
+            for spec in (FR, BLS12_381_FQ):
+                a, b = words(spec, (count,)), words(spec, (count,))
+                for op in ("mul_chain", "sqr_chain"):
+                    ms = median_ms(lambda: field_probe.field_ops(spec, op, a, b, iters=iters), 3)
+                    rates[f"{op}_w{spec.require_words()}"] = count * iters / ms / 1e6
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    print(json.dumps({
+        "root": str(root), "device": torch.cuda.get_device_name(0), "nvidia_smi": smi[0] if smi else None,
+        "ms": times, "g_products_per_s": rates,
+        "sass_mont_mul_8": own_build.sass_mix(root / "crypto_primitives_tpu_torch" / "csrc" / "field.cuh"),
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

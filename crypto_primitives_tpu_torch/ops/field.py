@@ -191,9 +191,6 @@ class FieldSpec:
                 "p_ext": digits(self.p, L + 1),
                 "r2": digits(self.R2_mod_p),
                 "one_std": digits(1),
-                "p_words": torch.from_numpy(
-                    _int_to_limbs(self.p, L // 2, WORD_BITS).view(np.int32)
-                ).to(device) if L % 2 == 0 else None,
                 # column of each schoolbook partial product a[i] * b[j]
                 "diag": torch.tensor((i + j).reshape(-1), dtype=torch.int64, device=device),
             }

@@ -6,9 +6,10 @@ returns sum_g table[g][idx[b, g]] as an extended point (X, Y, T, Z).  The
 table is :func:`curve_fast.pack_table_grouped`'s: group g holds the 2^w
 subset sums of w fixed points, affine as (x, y, d*x*y), in Montgomery words.
 On a CUDA tensor it launches ``csrc/msm_te.cu`` (one thread per row, one
-mixed add-2008-hwcd addition per group, 8 products); on a CPU tensor it runs
-:func:`grouped_msm_plain`, which takes the same steps in the same order, so
-the two agree word for word.  There is no fallback between them.
+mixed add-2008-hwcd addition per group, 8 carry-chain products, the indices
+staged in shared memory, table points read as 16-byte vectors); on a CPU
+tensor it runs :func:`grouped_msm_plain`, which takes the same steps in the
+same order, so the two agree word for word.  There is no fallback between them.
 """
 
 from __future__ import annotations
@@ -78,7 +79,9 @@ def grouped_msm(curve, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     tensors, :func:`grouped_msm_plain` for CPU ones.  ``idx`` entries must lie
     in [0, 2^w), as :func:`curve_fast.window_indices` makes them; nothing
     checks it.  For another index the plain version raises and the kernel
-    returns a meaningless sum (its read stays inside the table)."""
+    returns a meaningless sum (its read stays inside the table).  The kernel
+    reads the table in 16-byte vectors: a table that does not start on a
+    16-byte boundary (a view at an odd offset) raises."""
     if table.device.type == "cpu" and idx.device.type == "cpu":
         return grouped_msm_plain(curve, table, idx)
     _check_curve(curve)

@@ -4,18 +4,27 @@
 compute this permutation: ``permute_rns`` (``ops/poseidon_rns_pallas.py``,
 over RNS residues) and ``permute_pallas`` (``ops/poseidon_pallas.py``, over
 16-bit digits).  On a CUDA tensor it launches ``csrc/poseidon_permute.cu``
-(one thread per state, CIOS Montgomery products on 32-bit words); on a CPU
-tensor it runs :func:`permute_plain`, which repeats the same arithmetic with
-the plain field tier.  There is no fallback between the two: a CUDA tensor
-the kernel does not take raises.
+(one thread per state, carry-chain Montgomery products on 32-bit words, the
+sparse partial rounds of :func:`poseidon_sparse.port_schedule` and one
+reduction per output of each linear layer); on a CPU tensor it runs
+:func:`permute_plain`, the dense round function on the plain field tier.
+Both compute the same permutation, so they agree word for word.  There is no
+fallback between the two: a CUDA tensor the kernel does not take raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.native import build
 from crypto_primitives_tpu_torch.ops import field as ff
+from crypto_primitives_tpu_torch.ops import poseidon_sparse
+
+# The kernel's constant bank: a header of 16 words (p from word 0, n0 at
+# word 15), then the schedule's rows; at most 16384 words (64 KB).
+IMAGE_HEADER_WORDS = 16
+IMAGE_MAX_WORDS = 16384
 
 # Kernel launches in this process; chip_smoke.py resets and reads it.
 launches = 0
@@ -42,6 +51,21 @@ def permute_plain(config, state: torch.Tensor) -> torch.Tensor:
     return ff.from_digits(s)
 
 
+def kernel_image(config) -> tuple:
+    """(n_sparse, image): the words the kernel loads into its constant bank
+    for ``config``, a host uint32 array of the header and the rows of
+    :func:`poseidon_sparse.kernel_rows` (Montgomery form) for the config's
+    :func:`poseidon_sparse.port_schedule`."""
+    spec = config.field
+    W = spec.require_words()
+    n_sparse, rows = poseidon_sparse.kernel_rows(config, poseidon_sparse.port_schedule(config))
+    header = np.zeros(IMAGE_HEADER_WORDS, dtype=np.uint32)
+    header[:W] = [(spec.p >> (32 * j)) & 0xFFFFFFFF for j in range(W)]
+    header[15] = spec.n0_word
+    words = spec.pack(rows).reshape(-1).view(np.uint32)
+    return n_sparse, np.concatenate([header, words])
+
+
 def permute(config, state: torch.Tensor) -> torch.Tensor:
     """Poseidon permutation of ``state`` ``(B, t, W)`` int32 Montgomery words:
     the CUDA kernel for a CUDA tensor, :func:`permute_plain` for a CPU one.
@@ -60,13 +84,15 @@ def permute(config, state: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(state)
     if state.shape[0] == 0:
         return out
-    ark, mds = config.tables(state.device)
-    modulus = spec._consts(state.device)["p_words"]
+    n_sparse, image = config.schedule_tables(state.device)
+    if image.numel() > IMAGE_MAX_WORDS:
+        raise ValueError(f"the schedule's tables take {image.numel()} words, more than the kernel's "
+                         f"constant bank of {IMAGE_MAX_WORDS}")
     lib = build.load("poseidon_permute")
     err = lib.poseidon_permute(
-        state.data_ptr(), out.data_ptr(), ark.data_ptr(), mds.data_ptr(), modulus.data_ptr(),
-        spec.n0_word, state.shape[0], W, t, config.alpha, config.full_rounds,
-        config.partial_rounds, state.device.index or 0, torch.cuda.current_stream(state.device).cuda_stream,
+        state.data_ptr(), out.data_ptr(), image.data_ptr(), image.numel(), state.shape[0], W, t,
+        config.alpha, config.full_rounds, config.partial_rounds, n_sparse,
+        state.device.index or 0, torch.cuda.current_stream(state.device).cuda_stream,
     )
     build.check(lib, err, "poseidon_permute")
     global launches

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the Poseidon permutation, SHA-256 compression, and both grouped MSMs on every
-curve they are built for.
+the Poseidon permutation, SHA-256 compression, both grouped MSMs on every
+curve they are built for, and the field arithmetic they share (through the
+test-only field probe).
 
 Every test here needs a CUDA device and skips without one.  On a machine with
 a card (and without JAX, which tests/conftest.py imports):
@@ -45,12 +46,22 @@ def _config(spec, rate, full, partial, alpha):
     return PoseidonConfig(spec, full, partial, alpha, ark, mds, rate, 1)
 
 
-@pytest.mark.parametrize("which", ["fr_rate2", "fr_rate4", "fr_rate8", "jubjub_rate2", "fq_rate2", "fr_rate1"])
+def _singular_config():
+    """An MDS whose lower-right block is singular: the kernel runs the trivial
+    (all dense) schedule."""
+    base = get_default_poseidon_parameters(BLS12_381_FR, 2)
+    return PoseidonConfig(BLS12_381_FR, 8, 31, 17, base.ark, [[2, 3, 5], [7, 1, 1], [11, 1, 1]], 2, 1)
+
+
+@pytest.mark.parametrize("which", ["fr_rate2", "fr_rate4", "fr_rate8", "jubjub_rate2", "fq_rate2", "fr_rate1",
+                                   "fr_rate8_constraints", "singular"])
 def test_poseidon_kernel_matches_plain(cuda, which):
     cfg = {
         "fr_rate2": lambda: get_default_poseidon_parameters(BLS12_381_FR, 2),
         "fr_rate4": lambda: get_default_poseidon_parameters(BLS12_381_FR, 4),
         "fr_rate8": lambda: get_default_poseidon_parameters(BLS12_381_FR, 8, True),
+        "fr_rate8_constraints": lambda: get_default_poseidon_parameters(BLS12_381_FR, 8),
+        "singular": _singular_config,
         "jubjub_rate2": lambda: _config(JUBJUB_FR, 2, 8, 31, 17),
         "fq_rate2": lambda: _config(BLS12_381_FQ, 2, 8, 60, 5),
         "fr_rate1": lambda: _config(BLS12_381_FR, 1, 8, 31, 17),
@@ -105,7 +116,8 @@ def _a3_curve():
 
 @pytest.mark.parametrize("name", ["JUBJUB", "ED_ON_BLS12_377", "ED25519", "PALLAS", "BLS12_381_G1", "A3"])
 @pytest.mark.parametrize("w", [2, 3])
-def test_msm_kernels_match_plain(cuda, name, w):
+@pytest.mark.parametrize("npts", [20, 100])
+def test_msm_kernels_match_plain(cuda, name, w, npts):
     import random
 
     from crypto_primitives_tpu_torch.ops import curves_known, msm_kernel, msm_sw_kernel
@@ -114,10 +126,12 @@ def test_msm_kernels_match_plain(cuda, name, w):
     curve = _a3_curve() if name == "A3" else getattr(curves_known, name)
     kern = msm_kernel if curve.coords == 4 else msm_sw_kernel
     rng = random.Random(w)
-    pts = [curve.rand_point(rng) for _ in range(20)]  # 20 fills no whole group of 3
+    # 20 and 100 fill no whole group of 3; 100 makes 34 or 50 groups, past
+    # msm_te's index tile of 32 groups
+    pts = [curve.rand_point(rng) for _ in range(npts)]
     table = torch.from_numpy(fast_mod(curve).pack_table_grouped(curve, pts, w)).to(cuda)
     g = torch.Generator(device="cuda").manual_seed(w)
-    for rows in (1, 65, 1000):
+    for rows in (1, 65, 129, 1000):
         idx = torch.randint(0, 1 << w, (rows, table.shape[0]), dtype=torch.int32, device=cuda, generator=g)
         if rows > 2:
             idx[0], idx[1] = 0, (1 << w) - 1
@@ -150,3 +164,25 @@ def test_msm_kernels_refuse_what_they_do_not_take(cuda):
     sw_table = torch.zeros((2, 8, 3, 12), dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="invalid argument"):
         msm_sw_kernel.grouped_msm(g1a, sw_table, torch.zeros((4, 2), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("field", ["BLS12_381_FR", "BLS12_377_FR", "BLS12_381_FQ"])
+@pytest.mark.parametrize("op", ["mont_mul", "dot3", "dot9", "sparse_row", "add", "sub", "mont_sqr", "mul_chain",
+                                "sqr_chain"])
+def test_field_probe_matches_plain_on_edge_values(cuda, field, op):
+    """field.cuh's carry chains against the plain field tier, on every pair
+    of edge words and on 4096 random pairs (BLS12-377 Fr is the base field of
+    ed-on-bls12-377)."""
+    import itertools
+
+    from crypto_primitives_tpu_torch.ops import field_probe, fields_known
+
+    spec = getattr(fields_known, field)
+    pairs = list(itertools.product(field_probe.edge_values(spec), repeat=2))
+    rng = np.random.default_rng(7)
+    nbytes = 4 * spec.require_words() + 8
+    pairs += [tuple(int.from_bytes(rng.bytes(nbytes), "little") % spec.p for _ in range(2)) for _ in range(4096)]
+    a = torch.from_numpy(spec.pack([x for x, _ in pairs], mont=False)).to(cuda)
+    b = torch.from_numpy(spec.pack([y for _, y in pairs], mont=False)).to(cuda)
+    got = field_probe.field_ops(spec, op, a, b, iters=3)
+    assert torch.equal(got, field_probe.field_ops_plain(spec, op, a, b, iters=3))

@@ -98,3 +98,35 @@ def test_field_without_word_layout_raises():
         spec.pack([1])
     with pytest.raises(UnsupportedField):
         tff.zeros(spec, (2,))
+
+
+@pytest.mark.parametrize("name", ["BLS12_381_FR", "BLS12_377_FR", "BLS12_381_FQ"])
+def test_field_probe_plain_ops_on_edge_values(name):
+    """The plain values the card's field probe is held against, in Python
+    ints, on every pair of edge words (words taken as Montgomery forms)."""
+    import itertools
+
+    from crypto_primitives_tpu_torch.ops import field_probe
+
+    spec = getattr(tfk, name)
+    p, R = spec.p, 1 << (32 * spec.require_words())
+    vals = field_probe.edge_values(spec)
+    assert 0 in vals and p - 1 in vals and R % p in vals and all(0 <= v < p for v in vals)
+    pairs = list(itertools.product(vals, repeat=2))
+    a = torch.from_numpy(spec.pack([x for x, _ in pairs], mont=False))
+    b = torch.from_numpy(spec.pack([y for _, y in pairs], mont=False))
+    rinv = pow(R, -1, p)
+    want = {
+        "mont_mul": [x * y * rinv % p for x, y in pairs],
+        "dot3": [(3 * x * y * rinv + x) % p for x, y in pairs],
+        "dot9": [(9 * x * y * rinv + x) % p for x, y in pairs],
+        "sparse_row": [(x * y * rinv + x + y) % p for x, y in pairs],
+        "add": [(x + y) % p for x, y in pairs],
+        "sub": [(x - y) % p for x, y in pairs],
+        "mont_sqr": [x * x * rinv % p for x, _ in pairs],
+        "mul_chain": [x * (y * rinv) ** 3 % p for x, y in pairs],
+        "sqr_chain": [pow(x * rinv, 8, p) * R % p for x, _ in pairs],
+    }
+    for op in field_probe.OPS:
+        got = spec.unpack(field_probe.field_ops_plain(spec, op, a, b, iters=3), mont=False)
+        assert [int(v) for v in got] == want[op], op

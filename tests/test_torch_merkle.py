@@ -238,3 +238,105 @@ def test_poseidon_update_batch_matches_jax(pos):
     assert t.root() == j.root()
     for i in idx:
         assert t.generate_proof(i).auth_path == j.generate_proof(i).auth_path
+
+
+# ---------------------------------------------------------------- the JAX verify API
+
+
+SMALL = 16  # leaves of the trees below (the JAX RNS tree runs interpreted here)
+
+
+@pytest.fixture(scope="module")
+def small_trees():
+    """One SHA-256 and one Poseidon device tree in each package, on the same
+    seeded leaves, each with its proof rows for the same indexes."""
+    idx = [0, 5, 11]
+    sha_leaves = np.random.default_rng(21).integers(0, 256, (SMALL, 32), dtype=np.uint8)
+    jsha = jdev.sha256_device_tree(jnp.asarray(sha_leaves))
+    tsha = tdev.sha256_device_tree(sha_leaves, device=CPU)
+    vals = _field_values(SMALL, 22)
+    jpos = jdev.poseidon_rns_device_tree(jfk.BLS12_381_FR, jparams(jfk.BLS12_381_FR, 2, False), vals)
+    tpos = tdev.poseidon_device_tree(tfk.BLS12_381_FR, tparams(tfk.BLS12_381_FR, 2, False), vals, device=CPU)
+    out = {}
+    for kind, j, t in (("sha", jsha, tsha), ("poseidon", jpos, tpos)):
+        jsib, jauth = j.proof_rows(jnp.asarray(idx, dtype=jnp.int32))
+        tsib, tauth = t.proof_rows(idx)
+        out[kind] = {
+            "idx": idx,
+            "j": (j, jnp.take(j.leaf_digests, jnp.asarray(idx), axis=0), jsib, jauth),
+            "t": (t, t.leaf_digests[idx], tsib, tauth),
+        }
+    return out
+
+
+def _canonical_root(kind, pkg, tree):
+    """A canonical root row as a comparable value: bytes, or the field int."""
+    row = np.asarray(tree.canonical_root_row())
+    if kind == "sha":
+        return bytes(row.astype(np.uint8))
+    spec = jfk.BLS12_381_FR if pkg == "j" else tfk.BLS12_381_FR
+    return int(spec.unpack(row))
+
+
+def _root_rows(kind, pkg, root):
+    """(the true root, a wrong root) as canonical rows of package ``pkg``,
+    as a root arriving from another process would be packed."""
+    if kind == "sha":
+        good, bad = np.frombuffer(root, dtype=np.uint8), np.frombuffer(bytes([root[0] ^ 1]) + root[1:], dtype=np.uint8)
+        rows = (good.copy(), bad.copy())
+    else:
+        spec = jfk.BLS12_381_FR if pkg == "j" else tfk.BLS12_381_FR
+        rows = tuple(np.asarray(spec.pack([v]))[0] for v in (root, (root + 1) % spec.p))
+    return tuple(jnp.asarray(r) if pkg == "j" else torch.from_numpy(r) for r in rows)
+
+
+@pytest.mark.parametrize("kind", ["sha", "poseidon"])
+def test_canonical_root_row_matches_jax(small_trees, kind):
+    trees = small_trees[kind]
+    jroot = _canonical_root(kind, "j", trees["j"][0])
+    assert jroot == _canonical_root(kind, "t", trees["t"][0]) == trees["t"][0].root()
+
+
+@pytest.mark.parametrize("kind", ["sha", "poseidon"])
+def test_verify_rows_batch_root_canonical_matches_jax(small_trees, kind):
+    """The JAX call shape, with a true and a wrong canonical root, each with
+    root_canonical True; and the tree's own root row with the default."""
+    trees = small_trees[kind]
+    root = trees["t"][0].root()
+    verdicts = {}
+    for pkg in ("j", "t"):
+        tree, ld, sib, auth = trees[pkg]
+        idx = jnp.asarray(trees["idx"], dtype=jnp.int32) if pkg == "j" else trees["idx"]
+        good, bad = _root_rows(kind, pkg, root)
+        verdicts[pkg] = [
+            np.asarray(tree.verify_rows_batch(r, ld, idx, sib, auth, root_canonical=True)).tolist()
+            for r in (good, bad)
+        ] + [np.asarray(tree.verify_rows_batch(tree.root_row(), ld, idx, sib, auth)).tolist()]
+    assert verdicts["t"] == verdicts["j"] == [[True] * 3, [False] * 3, [True] * 3]
+
+
+@pytest.mark.parametrize("kind", ["sha", "poseidon"])
+def test_verify_rows_batch_refuses_a_root_of_the_wrong_shape(small_trees, kind):
+    for pkg in ("j", "t"):
+        tree, ld, sib, auth = small_trees[kind][pkg]
+        idx = jnp.asarray(small_trees[kind]["idx"], dtype=jnp.int32) if pkg == "j" else small_trees[kind]["idx"]
+        wrong = tree.root_row()[None]  # (1, D) where one row (D,) is expected
+        with pytest.raises(ValueError, match="canonical_root_row"):
+            tree.verify_rows_batch(wrong, ld, idx, sib, auth, root_canonical=True)
+
+
+@pytest.mark.parametrize("index", [8, 100, -1, -8])
+@pytest.mark.parametrize("method", ["update", "check_update"])
+def test_update_out_of_range_raises_index_error(method, index):
+    """The port refuses a leaf index outside [0, n), negative ones included,
+    and leaves the tree alone.  (The JAX package asserts index < n, which lets
+    a negative index through and vanishes under python -O; the reference's
+    usize index cannot be negative.)"""
+    leaves = np.random.default_rng(23).integers(0, 256, (8, 20), dtype=np.uint8)
+    _, tcfg = _sha_configs()
+    t = tmt.MerkleTree.new(tcfg, None, None, leaves, device=CPU)
+    root = t.root()
+    args = (index, b"new leaf") + ((root,) if method == "check_update" else ())
+    with pytest.raises(IndexError, match="out of range"):
+        getattr(t, method)(*args)
+    assert t.root() == root

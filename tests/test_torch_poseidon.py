@@ -143,15 +143,22 @@ def test_batched_byte_tiers_match_host():
     assert [int(v) for v in tfk.JUBJUB_FR.unpack(got[0])] == host.squeeze_field_elements_with_sizes(tfk.JUBJUB_FR, sizes)
 
 
-def test_missing_default_parameters_raise():
-    # the JAX package returns None here and then fails deep in the sponge
-    assert jsponge.get_default_poseidon_parameters(jfk.BLS12_381_FQ, 2, False) is None
-    with pytest.raises(MissingParameters, match="bls12_381_fq"):
-        tsponge.get_default_poseidon_parameters(tfk.BLS12_381_FQ, 2, False)
-    with pytest.raises(MissingParameters):
-        tsponge.get_default_poseidon_parameters(tfk.BLS12_381_FR, 9, False)
+@pytest.mark.parametrize("field,rate,weights", [
+    ("BLS12_381_FQ", 2, False),  # no table for the field
+    ("BLS12_381_FR", 9, False),  # no row for the rate
+    ("BLS12_381_FR", 9, True),
+])
+def test_missing_default_parameters_raise(field, rate, weights):
+    """Both packages return None where no default table exists; the port's
+    sponges then raise MissingParameters with the way to derive parameters
+    (the JAX package's batched sponge fails with AttributeError instead)."""
+    assert jsponge.get_default_poseidon_parameters(getattr(jfk, field), rate, weights) is None
+    assert tsponge.get_default_poseidon_parameters(getattr(tfk, field), rate, weights) is None
+    for make in (lambda: tsponge.PoseidonSponge(None), lambda: tsponge.PoseidonSpongeBatch(None, device="cpu")):
+        with pytest.raises(MissingParameters, match="find_poseidon_ark_and_mds"):
+            make()
     with pytest.raises(TypeError):
-        tsponge.PoseidonSpongeBatch(None, device="cpu")
+        tsponge.PoseidonSpongeBatch(object(), device="cpu")
 
 
 def test_kernel_wrapper_has_no_fallback():
