@@ -7,22 +7,29 @@ Phases (each prints a flushed line before and after, with its seconds):
   0. device: the card's name and power limit;
   1. build: nvcc compiles every kernel source in crypto_primitives_tpu_torch/csrc
      (ptxas registers and spills of every instantiation, and the SASS
-     instruction mix of one Montgomery product where cuobjdump exists);
+     instruction mix of one Montgomery product and of one SHA-256 block where
+     cuobjdump exists);
   2. known answers on the card: the pinned Poseidon sponge vector and SHA-256
      against hashlib;
   3. each kernel against its plain PyTorch version on the card, exactly, for
-     every instantiation (the MSM kernels on every curve they are built for),
-     and the shared field arithmetic (csrc/field_probe.cu) against the plain
-     field tier on edge values at W = 8 and W = 12;
+     every instantiation (the MSM kernels on every curve they are built for,
+     P-256 among them; SHA-256's byte entry at message lengths around the
+     padding's edges, with 16-byte and byte loads), and the shared field
+     arithmetic (csrc/field_probe.cu) against the plain field tier on edge
+     values at W = 8 and W = 12;
   4. the hashing paths at full size: a SHA-256 and a Poseidon Merkle tree
-     over 2^20 leaves each, built, proved and verified;
+     over 2^20 leaves each, built, proved and verified (the SHA-256 build
+     launches its kernel once per hashed level);
   5. the curve paths at full width: the Pedersen CRH and commitment over
      ed-on-bls12-377 (window 250 x 8, 128-byte inputs, 2^16 rows) and over
      BLS12-381 G1 (2^14 rows), and a 2^16-leaf Pedersen Merkle tree over
      JubJub, each held on sampled rows against the host oracle;
   6. times: each kernel at its path's shape (its output there held on 4096
      random rows against the plain version), the plain version's time, and
-     the bound the card sets.
+     the bound the card sets; SHA-256's byte entry at 2^19 messages of 64
+     bytes (the tree's inner levels, the shape in the kernels line) and of
+     80 bytes (its first inner level), and its word entry at 2^19 two-block
+     messages.
 Every path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel did not launch fails.  It needs CUDA and
 the repository: without either it exits non-zero before printing a result.
@@ -86,8 +93,19 @@ def general_a_curve():
 
 
 # Operations of one SHA-256 block: 48 schedule words at 13 operations, 64 rounds
-# at 25, 8 final additions (a rotation is one funnel shift).
+# at 25, 8 final additions (a rotation is one funnel shift).  The fixed padding
+# block that ends a message of a multiple of 64 bytes has no schedule to
+# compute, and each round adds one precomputed K[r] + W[r]: 64 rounds at 24.
 SHA_OPS_PER_BLOCK = 48 * 13 + 64 * 25 + 8
+SHA_OPS_PADDING_BLOCK = 64 * 24 + 8
+SHA_LENGTHS = (0, 32, 55, 56, 64, 80, 119, 128)
+
+
+def sha_ops(n: int) -> int:
+    """Operations of one n-byte message as the kernel computes it."""
+    if n % 64 == 0:
+        return n // 64 * SHA_OPS_PER_BLOCK + SHA_OPS_PADDING_BLOCK
+    return (n + 9 + 63) // 64 * SHA_OPS_PER_BLOCK
 
 
 def log(msg: str) -> None:
@@ -132,7 +150,7 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def random_elements(spec, shape, gen):
     """Uniform words with the top word below p's: values < p, in Montgomery form."""
-    W = spec.require_words()
+    W = spec.num_words
     w = torch.randint(-(1 << 31), 1 << 31, tuple(shape) + (W,), dtype=torch.int64,
                       device="cuda", generator=gen)
     top = (spec.p >> (32 * (W - 1))) & 0xFFFFFFFF
@@ -155,7 +173,7 @@ def poseidon_ops(config) -> int:
     takes one reduction.  A linear layer takes one multiply per matrix entry
     it applies and one reduction per output: t^2 and t in a dense round,
     2t - 1 and t in a sparse one (poseidon_sparse.port_schedule)."""
-    W = config.field.require_words()
+    W = config.field.num_words
     a, t = config.alpha, config.t
     n_sparse, _ = config.schedule_tables("cpu")
     sboxes = config.full_rounds * t + config.partial_rounds
@@ -253,9 +271,10 @@ def main() -> int:
         ED_ON_BLS12_377,
         JUBJUB,
         PALLAS,
+        SECP256R1,
     )
     from crypto_primitives_tpu_torch.ops.fields_known import ALL_FIELDS, BLS12_381_FQ, BLS12_381_FR as FR
-    from crypto_primitives_tpu_torch.ops.sha256 import bytes_to_words, padding, sha256
+    from crypto_primitives_tpu_torch.ops.sha256 import sha256
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -285,6 +304,9 @@ def main() -> int:
         log(f"build seconds: {build_s:.2f} (budget 90)")
         mix = build.sass_mix()
         log(f"  SASS of one mont_mul<8> (csrc/field.cuh, in a load-multiply-store kernel): "
+            f"{mix if mix is not None else 'cuobjdump not found'}")
+        mix = build.sha256_sass()
+        log(f"  SASS of one SHA-256 block (csrc/sha256_compress.cu, in a load-compress-store kernel): "
             f"{mix if mix is not None else 'cuobjdump not found'}")
 
     with Phase("phase 2: known answers"):
@@ -343,7 +365,7 @@ def main() -> int:
                 want = field_probe.field_ops_plain(spec, op, a, b)
                 torch.cuda.synchronize()
                 require(torch.equal(got, want), f"field probe {op} == plain on {spec.name}")
-            log(f"  field probe {spec.name} (W={spec.require_words()}): {', '.join(field_probe.OPS)} equal "
+            log(f"  field probe {spec.name} (W={spec.num_words}): {', '.join(field_probe.OPS)} equal "
                 f"on {len(pairs)} edge pairs and {CHECK_ROWS} random pairs")
         for nblocks in (1, 2, 4):
             words = torch.randint(-(1 << 31), 1 << 31, (CHECK_ROWS, nblocks, 16), dtype=torch.int64,
@@ -354,12 +376,25 @@ def main() -> int:
             errs["sha256_compress"] = max(errs["sha256_compress"], max_abs_err(got, want))
             require(torch.equal(got, want), f"sha256_compress == plain, {nblocks} blocks")
             log(f"  sha256_compress {nblocks} blocks: {CHECK_ROWS} messages equal")
+        # the byte entry: every length, from a 16-byte boundary (16-byte
+        # loads where n allows) and one byte past it (byte loads)
+        for n in SHA_LENGTHS:
+            flat = torch.randint(0, 256, (CHECK_ROWS * n + 1,), dtype=torch.uint8, device="cuda", generator=gen)
+            for off in (0, 1):
+                msgs = flat[off:off + CHECK_ROWS * n].view(CHECK_ROWS, n)
+                got = sha256_kernel.digest(msgs)
+                want = sha256_kernel.digest_plain(msgs)
+                torch.cuda.synchronize()
+                errs["sha256_compress"] = max(errs["sha256_compress"], max_abs_err(got, want))
+                require(torch.equal(got, want), f"sha256 digest == plain, {n} bytes at offset {off}")
+        log(f"  sha256 digest, n in {SHA_LENGTHS}, aligned and off by one byte: {CHECK_ROWS} messages equal")
         # every MSM instantiation: TE (W = 8) on three curves; SW W = 8 with
-        # a = 0 and a != 0, W = 12 with a = 0.  64 doublings of a random point
-        # in groups of 3, the first rows all-zero and all-ones windows.
+        # a = 0 and a != 0, W = 9 (P-256, a = -3), W = 12 with a = 0, each at
+        # its row split.  64 doublings of a random point in groups of 3, the
+        # first rows all-zero and all-ones windows.
         for curve, kern in ((JUBJUB, msm_kernel), (ED_ON_BLS12_377, msm_kernel), (ED25519, msm_kernel),
                             (PALLAS, msm_sw_kernel), (BLS12_381_G1, msm_sw_kernel),
-                            (general_a_curve(), msm_sw_kernel)):
+                            (general_a_curve(), msm_sw_kernel), (SECP256R1, msm_sw_kernel)):
             pts = [curve.rand_point(pyrng)]
             for _ in range(63):
                 pts.append(curve.double_host(pts[-1]))
@@ -372,7 +407,8 @@ def main() -> int:
             name = "msm_te" if kern is msm_kernel else "msm_sw"
             errs[name] = max(errs[name], max_abs_err(got, want))
             require(torch.equal(got, want), f"{name} == plain on {curve.name}")
-            log(f"  {name} {curve.name} (W={curve.base.num_words}, a={'0' if curve.a == 0 else 'p-1' if curve.a == curve.base.p - 1 else curve.a - curve.base.p}): "
+            split = f", k={msm_sw_kernel.split_of(curve)}" if kern is msm_sw_kernel else ""
+            log(f"  {name} {curve.name} (W={curve.base.num_words}, a={'0' if curve.a == 0 else 'p-1' if curve.a == curve.base.p - 1 else curve.a - curve.base.p}{split}): "
                 f"{CHECK_ROWS} rows x {table.shape[0]} groups equal")
 
     launches = dict.fromkeys(KERNELS, 0)
@@ -382,26 +418,31 @@ def main() -> int:
         idx = torch.arange(LEAVES, device="cuda")
         sel = torch.randperm(LEAVES, device="cuda", generator=gen)[:CHECK_ROWS].sort().values
 
-        def sha_path():
-            t = time.time()
+        def sha_build():
             tree = sha256_device_tree(leaves, device="cuda")
             torch.cuda.synchronize()
-            log(f"  sha256 tree built: {time.time() - t:.3f} s")
-            leaf_sib, auth = tree.proof_rows(idx)
-            ok = tree.verify_rows_batch(tree.root_row(), tree.leaf_digests, idx, leaf_sib, auth)
-            require(bool(ok.all()), "every SHA-256 auth path verifies")
-            bad = tree.verify_rows_batch(torch.zeros_like(tree.root_row()), tree.leaf_digests[:64],
-                                         idx[:64], leaf_sib[:64], auth[:64])
-            require(not bool(bad.any()), "a wrong SHA-256 root is rejected")
-            del leaf_sib, auth, ok
-            m_sib, m_auth = tree.proof_rows(sel)
-            require(bool(tree.multipath_verify_rows(tree.root_row(), tree.leaf_digests[sel],
-                                                    sel.tolist(), m_sib, m_auth)),
-                    "SHA-256 multipath verify over 4096 leaves")
             return tree
 
-        sha_tree, counts = drive("SHA-256 tree: build, verify all, wrong root, multipath", sha_path,
-                                 ["sha256_compress"])
+        sha_tree, counts = drive("SHA-256 tree: build", sha_build, ["sha256_compress"])
+        launches["sha256_compress"] += counts["sha256_compress"]
+        hashed_levels = 1 + len(sha_tree.inner_levels)  # the leaves, then every inner level
+        require(counts["sha256_compress"] == hashed_levels,
+                f"the SHA-256 build launches its kernel once per hashed level ({hashed_levels})")
+
+        def sha_verify():
+            leaf_sib, auth = sha_tree.proof_rows(idx)
+            ok = sha_tree.verify_rows_batch(sha_tree.root_row(), sha_tree.leaf_digests, idx, leaf_sib, auth)
+            require(bool(ok.all()), "every SHA-256 auth path verifies")
+            bad = sha_tree.verify_rows_batch(torch.zeros_like(sha_tree.root_row()), sha_tree.leaf_digests[:64],
+                                             idx[:64], leaf_sib[:64], auth[:64])
+            require(not bool(bad.any()), "a wrong SHA-256 root is rejected")
+            del leaf_sib, auth, ok
+            m_sib, m_auth = sha_tree.proof_rows(sel)
+            require(bool(sha_tree.multipath_verify_rows(sha_tree.root_row(), sha_tree.leaf_digests[sel],
+                                                        sel.tolist(), m_sib, m_auth)),
+                    "SHA-256 multipath verify over 4096 leaves")
+
+        _, counts = drive("SHA-256 tree: verify all, wrong root, multipath", sha_verify, ["sha256_compress"])
         launches["sha256_compress"] += counts["sha256_compress"]
         t = time.time()
         host_root = host_sha_root(leaves.cpu().numpy())
@@ -538,10 +579,15 @@ def main() -> int:
         # one whole level of 2^19 compressions, as the trees launch them
         level = pos_tree.leaf_digests.reshape(half, 2, 8)
         pstates = torch.cat([torch.zeros((half, 1, 8), dtype=torch.int32, device="cuda"), level], dim=1).contiguous()
-        conv = torch.cat([torch.tensor(list((32).to_bytes(8, "little")), dtype=torch.uint8, device="cuda")
-                          .expand(LEAVES, 8), sha_tree.leaf_digests], dim=1).reshape(half, 80)
-        msgs = torch.cat([conv, torch.from_numpy(padding(80)).cuda().expand(half, -1)], dim=1)
-        swords = bytes_to_words(msgs)
+        # the SHA-256 tree's first inner level (80 bytes: length prefix and
+        # digest, twice) and the level above it (64 bytes: two digests)
+        prefix = torch.tensor(list((32).to_bytes(8, "little")), dtype=torch.uint8, device="cuda")
+        sha80 = torch.cat([prefix.expand(LEAVES, 8), sha_tree.leaf_digests], dim=1).reshape(half, 80)
+        sha64 = sha_tree.inner_levels[-1].reshape(half // 2, 64)
+        sha64 = torch.cat([sha64, sha64]).contiguous()  # 2^19 rows, as many as the 80-byte level
+        # the word entry at the same 2^19 two-block messages (the TPU kernel's contract)
+        swords = torch.randint(-(1 << 31), 1 << 31, (half, 2, 16), dtype=torch.int64, device="cuda",
+                               generator=gen).to(torch.int32)
         te_curve, te_table, te_idx = main_shapes["msm_te"]
         sw_curve, sw_table, sw_idx = main_shapes["msm_sw"]
         # (kernel, plain version, input at the path's shape, kernel reps, plain
@@ -550,7 +596,9 @@ def main() -> int:
         calls = {
             "poseidon_permute": (lambda x: poseidon_kernel.permute(cfg, x),
                                  lambda x: poseidon_kernel.permute_plain(cfg, x), pstates, 10, 3),
-            "sha256_compress": (sha256_kernel.compress, sha256_kernel.compress_plain, swords, 20, 3),
+            "sha256_compress": (sha256_kernel.digest, sha256_kernel.digest_plain, sha64, 20, 3),
+            "sha256 80 bytes": (sha256_kernel.digest, sha256_kernel.digest_plain, sha80, 20, 3),
+            "sha256 words": (sha256_kernel.compress, sha256_kernel.compress_plain, swords, 20, 3),
             "msm_te": (lambda x: msm_kernel.grouped_msm(te_curve, te_table, x),
                        lambda x: msm_kernel.grouped_msm_plain(te_curve, te_table, x), te_idx, 10, 1),
             "msm_sw": (lambda x: msm_sw_kernel.grouped_msm(sw_curve, sw_table, x),
@@ -563,7 +611,8 @@ def main() -> int:
             # subset of its rows against the plain version on the same rows
             rows = torch.randperm(x.shape[0], device="cuda", generator=gen)[:CHECK_ROWS]
             got, want = kernel(x)[rows], plain(x[rows].contiguous())
-            errs[name] = max(errs[name], max_abs_err(got, want))
+            kname = "sha256_compress" if name.startswith("sha256") else name
+            errs[kname] = max(errs[kname], max_abs_err(got, want))
             require(torch.equal(got, want), f"{name} == plain on {CHECK_ROWS} rows of the {x.shape[0]}-row batch")
             log(f"  {name} at {x.shape[0]} rows: {CHECK_ROWS} random rows equal to the plain version")
             small = x[:CHECK_ROWS].contiguous()
@@ -577,7 +626,9 @@ def main() -> int:
         image_bytes = cfg.schedule_tables(pstates.device)[1].numel() * 4
         work = {
             "poseidon_permute": (2 * pstates.numel() * 4 + image_bytes, half * poseidon_ops(cfg)),
-            "sha256_compress": (swords.numel() * 4 + half * 32, half * swords.shape[1] * SHA_OPS_PER_BLOCK),
+            "sha256_compress": (sha64.numel() + half * 32, half * sha_ops(64)),
+            "sha256 80 bytes": (sha80.numel() + half * 32, half * sha_ops(80)),
+            "sha256 words": (swords.numel() * 4 + half * 32, half * 2 * SHA_OPS_PER_BLOCK),
             "msm_te": msm_bound(te_curve, te_table, te_idx),
             "msm_sw": msm_bound(sw_curve, sw_table, sw_idx),
         }
@@ -592,10 +643,16 @@ def main() -> int:
                        "crypto_primitives_tpu/ops/msm_sw_rns_pallas.py:423"),
         }
         kernels = []
-        for name in KERNELS:
+        for name in calls:
             nbytes, nops = work[name]
             tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
             b_ms, b_by = (tb, "bytes") if tb >= to else (to, "operations")
+            log(f"  {name}: {times[name]:.4f} ms at {calls[name][2].shape[0]} rows, bound {b_ms:.4f} ms ({b_by}; "
+                f"bytes alone {tb:.4f} ms, operations alone {to:.4f} ms), "
+                f"plain {plain_times[name]:.2f} ms at {CHECK_ROWS} rows"
+                + (f", {launches[name]} launches" if name in KERNELS else ""))
+            if name not in KERNELS:
+                continue
             src, replaces = sources[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -603,9 +660,8 @@ def main() -> int:
                 "ms": times[name], "plain_ms": plain_times[name], "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,
             })
-            log(f"  {name}: {times[name]:.4f} ms at {calls[name][2].shape[0]} rows, bound {b_ms:.4f} ms ({b_by}; "
-                f"bytes alone {tb:.4f} ms, operations alone {to:.4f} ms), "
-                f"plain {plain_times[name]:.2f} ms at {CHECK_ROWS} rows, {launches[name]} launches")
+        log(f"  msm_sw row split k = {msm_sw_kernel.split_of(sw_curve)} ({sw_curve.name}); "
+            f"split table {msm_sw_kernel.SPLIT}")
 
     log(f"total seconds: {time.time() - T0:.1f}")
     log(smi_line)

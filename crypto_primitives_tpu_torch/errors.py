@@ -31,9 +31,5 @@ class DeviceUnavailable(CryptoError):
     """The requested device (CUDA by default) is not present."""
 
 
-class UnsupportedField(CryptoError):
-    """The field's Montgomery layout does not fit the port's 32-bit words."""
-
-
 class MissingParameters(CryptoError):
     """No default parameter table exists for the requested configuration."""

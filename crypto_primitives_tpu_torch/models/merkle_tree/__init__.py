@@ -44,7 +44,7 @@ class FieldDigestDomain:
         return 0  # P::InnerDigest::default() == F::zero()
 
     def zeros(self, n: int) -> np.ndarray:
-        return np.zeros((n, self.spec.require_words()), dtype=np.int32)
+        return np.zeros((n, self.spec.num_words), dtype=np.int32)
 
     def to_host(self, row: np.ndarray):
         return self.spec.unpack(np.asarray(row))
@@ -68,7 +68,7 @@ class PointDigestDomain:
         return self.curve.zero_host()  # Affine::default() is the identity
 
     def zeros(self, n: int) -> np.ndarray:
-        return np.broadcast_to(self.from_host(self.default_host()), (n, 2, self.curve.base.require_words())).copy()
+        return np.broadcast_to(self.from_host(self.default_host()), (n, 2, self.curve.base.num_words)).copy()
 
     def to_host(self, row: np.ndarray):
         x, y = self.curve.base.unpack(np.asarray(row))
@@ -163,9 +163,7 @@ class FieldToBytesDigestConverter:
         return self.spec.to_bytes_le(int(host_digest))
 
     def convert_batch(self, arr: torch.Tensor) -> torch.Tensor:
-        std = ff.from_mont(self.spec, arr).to(torch.int64) & ff.WORD_MASK
-        by = torch.stack([(std >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1)
-        return by.reshape(arr.shape[:-1] + (self.spec.bigint_bytes,)).to(torch.uint8)
+        return ff.to_bytes_le(self.spec, arr)
 
 
 @dataclasses.dataclass

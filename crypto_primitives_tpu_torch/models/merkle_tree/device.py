@@ -8,7 +8,8 @@ host sees digests only at explicit conversion points (``root()``,
 
 Three instantiations:
   * :func:`sha256_device_tree`: byte digests ``(n, 32)`` uint8; a whole level
-    is one SHA-256 compression launch;
+    is one SHA-256 kernel launch (padding and byte order in the kernel), and
+    the first inner level adds the length prefix with one ``torch.cat``;
   * :func:`poseidon_device_tree`: digests are ``(n, W)`` Montgomery words; the
     leaf hash is ``permute([0, x, 0])[1]`` and ``compress(l, r)`` is
     ``permute([0, l, r])[1]``, the exact duplex schedule of the reference's

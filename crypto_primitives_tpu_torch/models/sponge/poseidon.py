@@ -100,7 +100,7 @@ def _bits_le_to_field(bits: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     (``from_le_bytes_mod_order`` with nb <= nbits, so one conditional
     subtraction reduces)."""
     nb = bits.shape[-1]
-    L = spec.num_limbs
+    L = spec.num_digits
     if nb > spec.nbits:
         raise ValueError("more bits than the field holds")
     b = torch.nn.functional.pad(bits.to(torch.int64), (0, 16 * L - nb))
@@ -126,7 +126,7 @@ class PoseidonSpongeBatch:
         self.config = config
         self.spec = config.field
         self.device = resolve_device(device)
-        W = self.spec.require_words()
+        W = self.spec.num_words
         if state is None:
             self.batch_shape = tuple(batch_shape)
             state = ff.zeros(self.spec, self.batch_shape + (config.t,), device=self.device)
@@ -256,7 +256,7 @@ class PoseidonSpongeBatch:
 
         if not sizes:
             return torch.zeros(
-                self.batch_shape + (0, target_spec.require_words()),
+                self.batch_shape + (0, target_spec.num_words),
                 dtype=torch.int32, device=self.device,
             )
         if target_spec.p == self.spec.p and all(s == FieldElementSize.FULL for s in sizes):

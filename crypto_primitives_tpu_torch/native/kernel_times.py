@@ -14,10 +14,20 @@ in one call: A, B, B, A.  Inputs are made on the card from a fixed seed:
 
   poseidon_permute  2^19 BLS12-381 Fr states, t = 3 (one level of the
                     2^20-leaf Poseidon tree)
-  sha256_compress   2^19 two-block messages (one level of the SHA-256 tree)
+  sha256_compress   2^19 two-block messages of pre-padded words (the TPU
+                    kernel's contract)
+  sha256_64, _80    ops.sha256.sha256 on 2^19 messages of 64 and 80 bytes
+                    (the SHA-256 tree's inner levels and its first inner
+                    level, with the length prefix), whatever that entry
+                    launches around the kernel
   msm_te            2^16 rows x 342 groups, w = 3, ed-on-bls12-377 (the
                     Pedersen CRH at window 250 x 8 on 128-byte inputs)
-  msm_sw            2^14 rows x 342 groups, w = 3, BLS12-381 G1
+  msm_sw            2^14 rows x 342 groups, w = 3, BLS12-381 G1, as built
+  msm_sw_<curve>_k<k>  where the root's msm_sw_kernel has a SPLIT table: the
+                    same shape for every build (BLS12-381 G1, Pallas, a W = 8
+                    curve with a != 0, P-256) with each row split over
+                    k = 1, 2, 3, 4 and 8 threads, each held on 128 random
+                    rows against the plain version at the same k
 
 Each time is the median of ten CUDA-event timings of single launches after a
 warm-up.  Where the root has the field probe's chain ops, it also times the
@@ -26,8 +36,10 @@ thread 1000 dependent products (``mul_chain``) or squares (``sqr_chain``) at
 W = 8 (BLS12-381 Fr) and W = 12 (BLS12-381 Fq), reported in G products/s:
 the ceiling that the field arithmetic sets for every kernel built on it.
 Prints one JSON line: the root, the card, its power limit, the times in ms,
-the product rates, and the SASS instruction mix of one mont_mul<8> of the
-root's csrc/field.cuh (from this file's own native/build.py).
+the product rates, ptxas's registers and spills for every msm_sw build, and
+the SASS instruction counts of one mont_mul<8> of the root's csrc/field.cuh
+and of one SHA-256 block of its csrc/sha256_compress.cu (where that source
+has the shared block function), from this file's own native/build.py.
 """
 
 from __future__ import annotations
@@ -90,13 +102,14 @@ def main() -> int:
     from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
     from crypto_primitives_tpu_torch.ops.curves_known import BLS12_381_G1, ED_ON_BLS12_377
     from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FR as FR
+    from crypto_primitives_tpu_torch.ops.sha256 import sha256
 
     build.build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = random.Random(SEED)
 
     def words(spec, shape):
-        W = spec.require_words()
+        W = spec.num_words
         w = torch.randint(-(1 << 31), 1 << 31, tuple(shape) + (W,), dtype=torch.int64, device="cuda", generator=gen)
         top = (spec.p >> (32 * (W - 1))) & 0xFFFFFFFF
         w[..., W - 1] = torch.randint(0, top, tuple(shape), dtype=torch.int64, device="cuda", generator=gen)
@@ -114,15 +127,41 @@ def main() -> int:
     states = words(FR, (1 << 19, 3))
     sha = torch.randint(-(1 << 31), 1 << 31, (1 << 19, 2, 16), dtype=torch.int64, device="cuda",
                         generator=gen).to(torch.int32)
+    sha_msgs = {n: torch.randint(0, 256, (1 << 19, n), dtype=torch.uint8, device="cuda", generator=gen)
+                for n in (64, 80)}
     te_table, te_idx = msm_operands(ED_ON_BLS12_377, 1 << 16)
     sw_table, sw_idx = msm_operands(BLS12_381_G1, 1 << 14)
     calls = {
         "poseidon_permute": lambda: poseidon_kernel.permute(cfg, states),
         "sha256_compress": lambda: sha256_kernel.compress(sha),
+        "sha256_64": lambda: sha256(sha_msgs[64], device="cuda"),
+        "sha256_80": lambda: sha256(sha_msgs[80], device="cuda"),
         "msm_te": lambda: msm_kernel.grouped_msm(ED_ON_BLS12_377, te_table, te_idx),
         "msm_sw": lambda: msm_sw_kernel.grouped_msm(BLS12_381_G1, sw_table, sw_idx),
     }
     times = {name: median_ms(fn, 10) for name, fn in calls.items()}
+    if hasattr(msm_sw_kernel, "SPLIT"):
+        from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
+        from crypto_primitives_tpu_torch.ops.curves_known import PALLAS, SECP256R1
+
+        a3 = SWCurveSpec("test_a3_bls12_381_fr", FR, FR, -3, 1, 1, (0, 1))
+        rows = torch.randperm(1 << 14, device="cuda", generator=gen)[:128]
+        for curve in (BLS12_381_G1, PALLAS, a3, SECP256R1):
+            table, idx = (sw_table, sw_idx) if curve is BLS12_381_G1 else msm_operands(curve, 1 << 14)
+            key = (curve.base.num_words, curve.a == 0)
+            built = msm_sw_kernel.SPLIT[key]
+            try:
+                for k in (1, 2, 3, 4, 8):
+                    msm_sw_kernel.SPLIT[key] = k
+
+                    def fn():
+                        return msm_sw_kernel.grouped_msm(curve, table, idx)
+
+                    if not torch.equal(fn()[rows], msm_sw_kernel.grouped_msm_plain(curve, table, idx[rows])):
+                        raise SystemExit(f"msm_sw on {curve.name} at k = {k} differs from its plain version")
+                    times[f"msm_sw_{curve.name}_k{k}"] = median_ms(fn, 10)
+            finally:
+                msm_sw_kernel.SPLIT[key] = built
     rates = {}
     if importlib.util.find_spec("crypto_primitives_tpu_torch.ops.field_probe") is not None:
         from crypto_primitives_tpu_torch.ops import field_probe
@@ -134,13 +173,17 @@ def main() -> int:
                 a, b = words(spec, (count,)), words(spec, (count,))
                 for op in ("mul_chain", "sqr_chain"):
                     ms = median_ms(lambda: field_probe.field_ops(spec, op, a, b, iters=iters), 3)
-                    rates[f"{op}_w{spec.require_words()}"] = count * iters / ms / 1e6
+                    rates[f"{op}_w{spec.num_words}"] = count * iters / ms / 1e6
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    csrc = root / "crypto_primitives_tpu_torch" / "csrc"
+    has_block = "compress_block" in (csrc / "sha256_compress.cu").read_text()
     print(json.dumps({
         "root": str(root), "device": torch.cuda.get_device_name(0), "nvidia_smi": smi[0] if smi else None,
         "ms": times, "g_products_per_s": rates,
-        "sass_mont_mul_8": own_build.sass_mix(root / "crypto_primitives_tpu_torch" / "csrc" / "field.cuh"),
+        "ptxas_msm_sw": own_build.ptxas_report("msm_sw", build.BUILD_DIR),
+        "sass_mont_mul_8": own_build.sass_mix(csrc / "field.cuh"),
+        "sass_sha256_block": own_build.sha256_sass(csrc / "sha256_compress.cu") if has_block else None,
     }), flush=True)
     return 0
 

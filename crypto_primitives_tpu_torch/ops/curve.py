@@ -204,9 +204,7 @@ def affine_to_uncompressed_bytes(curve, aff: torch.Tensor) -> torch.Tensor:
     as bigint little-endian bytes, no flags.  The batched twin of
     :meth:`TECurveSpec.to_uncompressed_bytes` (the JAX package's batched
     encoding), for either curve model."""
-    std = ff.from_mont(curve.base, aff).to(torch.int64) & ff.WORD_MASK
-    by = torch.stack([(std >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1)
-    return by.reshape(aff.shape[:-2] + (2 * curve.base.bigint_bytes,)).to(torch.uint8)
+    return ff.to_bytes_le(curve.base, aff).flatten(-2)
 
 
 # ----------------------------------------------------------------------
@@ -249,7 +247,6 @@ def identity(curve: TECurveSpec, shape, device) -> torch.Tensor:
 
 def te_add(curve: TECurveSpec, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     """Complete extended-coordinate addition of (..., 4, W) points."""
-    curve.base.require_words()
     return ff.from_digits(te_add_digits(curve, ff.to_digits(p1), ff.to_digits(p2)))
 
 
@@ -277,7 +274,6 @@ def tree_sum_digits(add_digits, ident: torch.Tensor, pts: torch.Tensor) -> torch
 
 def te_sum(curve: TECurveSpec, pts: torch.Tensor) -> torch.Tensor:
     """Sum (..., N, 4, W) points along N by log-depth pairwise addition."""
-    curve.base.require_words()
     d = ff.to_digits(pts)
     ident = curve._consts(pts.device)["identity"]
     return ff.from_digits(tree_sum_digits(lambda a, b: te_add_digits(curve, a, b), ident, d))
@@ -285,7 +281,6 @@ def te_sum(curve: TECurveSpec, pts: torch.Tensor) -> torch.Tensor:
 
 def te_to_affine(curve: TECurveSpec, pts: torch.Tensor) -> torch.Tensor:
     """(..., 4, W) extended -> (..., 2, W) affine (x, y) Montgomery words."""
-    curve.base.require_words()
     return ff.from_digits(te_to_affine_digits(curve, ff.to_digits(pts)))
 
 
@@ -294,7 +289,6 @@ def te_conditional_sum(curve: TECurveSpec, table: torch.Tensor, bits: torch.Tens
     """sum_j bits[..., j] * table[j]: a per-bit select against the identity,
     then a tree sum, ``chunk`` table entries at a time.  table (N, 4, W),
     bits (..., N); returns (..., 4, W)."""
-    curve.base.require_words()
     batch = tuple(bits.shape[:-1])
     ident = curve._consts(table.device)["identity"]
     tab = ff.to_digits(table)

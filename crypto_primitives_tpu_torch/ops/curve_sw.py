@@ -280,7 +280,6 @@ def identity(curve: SWCurveSpec, shape, device) -> torch.Tensor:
 
 def sw_add(curve: SWCurveSpec, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     """Complete projective addition of (..., 3, W) points."""
-    curve.base.require_words()
     return ff.from_digits(sw_add_digits(curve, ff.to_digits(p1), ff.to_digits(p2)))
 
 
@@ -297,7 +296,6 @@ def sw_select(mask: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> torch.T
 
 def sw_sum(curve: SWCurveSpec, pts: torch.Tensor) -> torch.Tensor:
     """Sum (..., N, 3, W) points along N by log-depth pairwise addition."""
-    curve.base.require_words()
     ident = curve._consts(pts.device)["identity"]
     return ff.from_digits(tree_sum_digits(lambda a, b: sw_add_digits(curve, a, b), ident, ff.to_digits(pts)))
 
@@ -305,5 +303,4 @@ def sw_sum(curve: SWCurveSpec, pts: torch.Tensor) -> torch.Tensor:
 def sw_to_affine(curve: SWCurveSpec, pts: torch.Tensor) -> torch.Tensor:
     """(..., 3, W) projective -> (..., 2, W) affine Montgomery words; the
     identity maps to (0, 0)."""
-    curve.base.require_words()
     return ff.from_digits(sw_to_affine_digits(curve, ff.to_digits(pts)))

@@ -10,9 +10,9 @@ deterministic ones (smallest admissible x, even y, cofactor cleared), not the
 reference's named constants; every scheme samples its own generators in
 ``setup`` anyway.
 
-P-256's base field has a 17-digit JAX layout (R = 2^272) that does not pair
-into 32-bit words: its host tier works, and its batched tier raises
-:class:`UnsupportedField`, as the field tier does.
+P-256's fields fill all 256 bits, so the port gives them a spare word
+(W = 9, R = 2^288) where the JAX package gives them a spare digit (L = 17,
+R = 2^272); ``interop`` converts between the two Montgomery forms.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ ED25519 = TECurveSpec(
 SECP256R1_FQ = FieldSpec("secp256r1_fq", 2**256 - 2**224 + 2**192 + 2**96 - 1)
 SECP256R1_FR = FieldSpec("secp256r1_fr", 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551)
 
-# NIST P-256 (SEC 2 section 2.4.2): y^2 = x^3 - 3x + b; host tier only (see above)
+# NIST P-256 (SEC 2 section 2.4.2): y^2 = x^3 - 3x + b
 SECP256R1 = SWCurveSpec(
     "secp256r1",
     base=SECP256R1_FQ,

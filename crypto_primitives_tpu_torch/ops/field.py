@@ -2,22 +2,26 @@
 
 Twin of ``crypto_primitives_tpu/ops/field.py``.  The JAX package keeps an
 element as L little-endian 16-bit digits in uint32 lanes, in Montgomery form
-with R = 2^(16 L).  The port keeps the same R and pairs adjacent digits into
-W = L/2 little-endian 32-bit words, so a port element is the JAX element with
-``word[k] = digit[2k] | digit[2k+1] << 16``.  Words are stored as
-``torch.int32`` holding uint32 bit patterns: PyTorch on the CPU has no uint32
-add, shift or compare.  A field whose L is odd (the 256-bit P-256 prime, whose
-JAX layout adds a spare digit: L = 17, R = 2^272) has no such pairing, and the
-port's batched tier raises :class:`UnsupportedField` for it.
+with R = 2^(16 L), L = ceil(nbits / 16) plus a spare digit when p fills its
+digits.  The port keeps W little-endian 32-bit words, W = ceil(nbits / 32)
+plus a spare word when p fills its words, in Montgomery form with
+R = 2^(32 W).  For every field whose L is even (every known field but P-256's
+two) 2W = L, the two R agree and a port element is the JAX element with
+``word[k] = digit[2k] | digit[2k+1] << 16``.  A 256-bit prime (P-256) has
+L = 17 (R = 2^272) in the JAX package and W = 9 (R = 2^288) here; its
+Montgomery forms differ by the factor 2^16, which ``interop`` converts.  Either
+way p < 2^(32 W - 1), the spare bit the kernels' lazy reductions need
+(``csrc/field.cuh``).  Words are stored as ``torch.int32`` holding uint32 bit
+patterns: PyTorch on the CPU has no uint32 add, shift or compare.
 
 Two tiers:
   * host tier: Python-int helpers on :class:`FieldSpec` (exact), with the same
-    constants as the JAX ``FieldSpec``;
+    constants as the JAX ``FieldSpec`` where the two R agree;
   * batched tier: ``add``, ``sub``, ``neg``, ``mont_mul``, ``mul_small``,
     ``pow_const``, ``inv``, ``to_mont``, ``from_mont``, ``eq``, ``is_zero``
     and ``select`` on ``(..., W)`` int32 tensors, on any device.  These are
-    the plain versions: they compute on 16-bit digits held in int64, so that
-    schoolbook column sums never overflow.  The CUDA kernels do the same
+    the plain versions: they compute on 2W 16-bit digits held in int64, so
+    that schoolbook column sums never overflow.  The CUDA kernels do the same
     arithmetic on 32-bit words (``csrc/field.cuh``).  Callers that chain many
     operations (the curve tier) stay on digits between them with the
     ``*_digits`` functions and convert once at each end.
@@ -31,8 +35,6 @@ from typing import Sequence
 
 import numpy as np
 import torch
-
-from crypto_primitives_tpu_torch.errors import UnsupportedField
 
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -55,8 +57,9 @@ def _limbs_to_int(limbs: Sequence[int], bits: int = LIMB_BITS) -> int:
 
 
 class FieldSpec:
-    """A prime field F_p with the JAX package's limb layout and Montgomery
-    constants, plus the 32-bit word constants the port's kernels use.
+    """A prime field F_p with the port's 32-bit word layout and Montgomery
+    constants, and the JAX package's digit count (``num_limbs``, which sets
+    the arkworks byte widths).
 
     Hashable by identity, as in the JAX package."""
 
@@ -65,26 +68,26 @@ class FieldSpec:
         self.p = modulus
         self.generator = generator
         self.nbits = modulus.bit_length()
-        # Same rule as the JAX package: ceil(nbits / 16) digits, plus one
-        # spare digit when the modulus fills its digits exactly.
-        self.num_limbs = -(-self.nbits // LIMB_BITS)
-        if self.nbits % LIMB_BITS == 0:
-            self.num_limbs += 1
-        L = self.num_limbs
-        self.R = 1 << (LIMB_BITS * L)
+        # The JAX package's rule: ceil(nbits / 16) digits, plus one spare
+        # digit when the modulus fills its digits exactly.
+        self.num_limbs = -(-self.nbits // LIMB_BITS) + (self.nbits % LIMB_BITS == 0)
+        # The port's rule, the same on 32-bit words; the plain tier computes
+        # on the words' 2W digits.
+        self.num_words = -(-self.nbits // WORD_BITS) + (self.nbits % WORD_BITS == 0)
+        self.num_digits = 2 * self.num_words
+        D = self.num_digits
+        self.R = 1 << (LIMB_BITS * D)
         self.R_mod_p = self.R % modulus
         self.R2_mod_p = (self.R * self.R) % modulus
         self.R_inv = pow(self.R, -1, modulus)
         self.n0 = (-pow(modulus, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
         self.n_prime = (-pow(modulus, -1, self.R)) % self.R
-        self.bigint_bytes = (L * LIMB_BITS) // 8
+        self.bigint_bytes = (self.num_limbs * LIMB_BITS) // 8
         self.compressed_bytes = -(-self.nbits // 8)
-        self.p_limbs = _int_to_limbs(modulus, L)
-        self.r_limbs = _int_to_limbs(self.R_mod_p, L)
-        self.r2_limbs = _int_to_limbs(self.R2_mod_p, L)
-        self.n_prime_limbs = _int_to_limbs(self.n_prime, L)
-        # 32-bit word layout: only when R is a whole number of words
-        self.num_words = L // 2 if L % 2 == 0 else None
+        self.p_limbs = _int_to_limbs(modulus, D)
+        self.r_limbs = _int_to_limbs(self.R_mod_p, D)
+        self.r2_limbs = _int_to_limbs(self.R2_mod_p, D)
+        self.n_prime_limbs = _int_to_limbs(self.n_prime, D)
         self.n0_word = (-pow(modulus, -1, 1 << WORD_BITS)) % (1 << WORD_BITS)
         self._tensors: dict = {}
 
@@ -95,18 +98,7 @@ class FieldSpec:
         return self is other
 
     def __repr__(self):
-        return f"FieldSpec({self.name}, {self.nbits} bits, {self.num_limbs} limbs)"
-
-    def require_words(self) -> int:
-        """W, the number of 32-bit words; raises for a field whose R is not
-        a whole number of words."""
-        if self.num_words is None:
-            raise UnsupportedField(
-                f"{self.name}: R = 2^{LIMB_BITS * self.num_limbs} is not a whole "
-                "number of 32-bit words, so the port's limb tier cannot hold "
-                "its Montgomery form"
-            )
-        return self.num_words
+        return f"FieldSpec({self.name}, {self.nbits} bits, {self.num_words} words)"
 
     # ---------------- host (python-int) tier ----------------
 
@@ -145,7 +137,7 @@ class FieldSpec:
     def pack(self, values, mont: bool = True) -> np.ndarray:
         """Python ints (nested lists allowed) -> int32 words ``(..., W)``,
         in Montgomery form unless ``mont=False``."""
-        W = self.require_words()
+        W = self.num_words
         arr = np.asarray(values, dtype=object)
         flat = arr.reshape(-1)
         out = np.zeros((flat.shape[0], W), dtype=np.uint32)
@@ -159,7 +151,7 @@ class FieldSpec:
     def unpack(self, words, mont: bool = True):
         """Inverse of :meth:`pack`: Python ints (an object ndarray, or an
         int for a single element)."""
-        W = self.require_words()
+        W = self.num_words
         if isinstance(words, torch.Tensor):
             words = words.cpu().numpy()
         arr = np.asarray(words)
@@ -180,7 +172,7 @@ class FieldSpec:
         key = str(device)
         c = self._tensors.get(key)
         if c is None:
-            L = self.num_limbs
+            L = self.num_digits
 
             def digits(x, n=L):
                 return torch.tensor(_int_to_limbs(x, n).astype(np.int64), device=device)
@@ -201,7 +193,7 @@ class FieldSpec:
 def host_words(spec: FieldSpec, values) -> np.ndarray:
     """Python ints, as they are (no Montgomery conversion), -> one flat
     uint32 array of W words each: the constants a kernel takes by value."""
-    W = spec.require_words()
+    W = spec.num_words
     return np.frombuffer(b"".join(int(v).to_bytes(4 * W, "little") for v in values), dtype="<u4").copy()
 
 
@@ -275,7 +267,7 @@ def _redc(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
     """Montgomery reduction of relaxed column sums ``t`` (..., 2L+1), in
     place, digit by digit (REDC with the 16-bit factor n0).  Returns relaxed
     digits (..., L+1) of (T + m p) / R."""
-    L = spec.num_limbs
+    L = spec.num_digits
     P = spec._consts(t.device)["p"]
     cols = t.unbind(-1)  # views: in-place updates land in t
     for i in range(L):
@@ -288,7 +280,7 @@ def _redc(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
 def _columns(spec: FieldSpec, prod: torch.Tensor, terms: int = 1) -> torch.Tensor:
     """Schoolbook column sums of ``prod`` (..., terms * L * L) partial
     products a[i] * b[j] into (..., 2L+1) columns."""
-    L = spec.num_limbs
+    L = spec.num_digits
     c = spec._consts(prod.device)
     index = c["diag"] if terms == 1 else c["diag"].repeat(terms)
     t = prod.new_zeros(prod.shape[:-1] + (2 * L + 1,))
@@ -300,7 +292,7 @@ def mont_mul_digits(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.
     the final subtraction)."""
     a, b = torch.broadcast_tensors(a, b)
     t = _columns(spec, (a.unsqueeze(-1) * b.unsqueeze(-2)).flatten(-2))
-    return _reduce(_redc(spec, t), spec._consts(a.device)["p_ext"], 1)[..., : spec.num_limbs]
+    return _reduce(_redc(spec, t), spec._consts(a.device)["p_ext"], 1)[..., : spec.num_digits]
 
 
 def mont_dot_digits(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -312,7 +304,7 @@ def mont_dot_digits(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.
     t = _columns(spec, prod.flatten(-3), terms=K)
     # T < K p^2, so (T + m p) / R < (K p / R + 1) p
     max_mult = (K * spec.p) // spec.R + 1
-    return _reduce(_redc(spec, t), spec._consts(a.device)["p_ext"], max_mult)[..., : spec.num_limbs]
+    return _reduce(_redc(spec, t), spec._consts(a.device)["p_ext"], max_mult)[..., : spec.num_digits]
 
 
 def pow_const_digits(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
@@ -333,49 +325,50 @@ def pow_const_digits(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def zeros(spec: FieldSpec, shape=(), device=None) -> torch.Tensor:
-    return torch.zeros(tuple(shape) + (spec.require_words(),), dtype=torch.int32, device=device)
+    return torch.zeros(tuple(shape) + (spec.num_words,), dtype=torch.int32, device=device)
 
 
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Modular addition (the same in Montgomery and standard form)."""
-    spec.require_words()
     return from_digits(add_digits(spec, to_digits(a), to_digits(b)))
 
 
 def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    spec.require_words()
     return from_digits(sub_digits(spec, to_digits(a), to_digits(b)))
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a * b * R^-1 mod p."""
-    spec.require_words()
     return from_digits(mont_mul_digits(spec, to_digits(a), to_digits(b)))
 
 
 def pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e for a constant exponent (the Poseidon S-box x^alpha)."""
-    spec.require_words()
     return from_digits(pow_const_digits(spec, to_digits(a), e))
 
 
 def to_mont(spec: FieldSpec, a_std: torch.Tensor) -> torch.Tensor:
     """Standard form -> Montgomery form (a Montgomery product with R^2)."""
-    spec.require_words()
     d = to_digits(a_std)
     return from_digits(mont_mul_digits(spec, d, spec._consts(d.device)["r2"]))
 
 
 def from_mont(spec: FieldSpec, a_mont: torch.Tensor) -> torch.Tensor:
     """Montgomery form -> standard form (a Montgomery product with 1)."""
-    spec.require_words()
     d = to_digits(a_mont)
     return from_digits(mont_mul_digits(spec, d, spec._consts(d.device)["one_std"]))
 
 
+def to_bytes_le(spec: FieldSpec, a_mont: torch.Tensor) -> torch.Tensor:
+    """``(..., W)`` Montgomery words -> ``(..., bigint_bytes)`` uint8: the
+    little-endian bytes of each standard value (``FieldSpec.to_bytes_le``)."""
+    std = from_mont(spec, a_mont).to(torch.int64) & WORD_MASK
+    by = torch.stack([(std >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1)
+    return by.flatten(-2)[..., : spec.bigint_bytes].to(torch.uint8)
+
+
 def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """-a mod p (0 stays 0)."""
-    spec.require_words()
     return from_digits(neg_digits(spec, to_digits(a)))
 
 

@@ -27,7 +27,7 @@ def edge_values(spec) -> list:
     word one below p's, p's top word over zero words, and all-ones words
     under a zero top word.  Pack them with ``mont=False``: the kernel takes
     the words as they are."""
-    W = spec.require_words()
+    W = spec.num_words
     R = 1 << (32 * W)
     top = spec.p >> (32 * (W - 1))
     ones_below = ((top - 1) << (32 * (W - 1))) | ((1 << (32 * (W - 1))) - 1)
@@ -59,7 +59,7 @@ def field_ops_plain(spec, op: str, a: torch.Tensor, b: torch.Tensor, iters: int 
 
 def field_ops(spec, op: str, a: torch.Tensor, b: torch.Tensor, iters: int = 1) -> torch.Tensor:
     """``op`` on CUDA Montgomery words ``(n, W)`` int32, through the kernel."""
-    W = spec.require_words()
+    W = spec.num_words
     for x in (a, b):
         if x.device.type != "cuda" or x.dtype != torch.int32 or tuple(x.shape[1:]) != (W,) or not x.is_contiguous():
             raise ValueError(f"field_ops takes contiguous int32 (n, {W}) CUDA tensors")

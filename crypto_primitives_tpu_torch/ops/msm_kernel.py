@@ -48,7 +48,6 @@ def grouped_msm_plain(curve, table: torch.Tensor, idx: torch.Tensor) -> torch.Te
     """Plain PyTorch version: table (G, 2^w, 3, W), idx (B, G) -> (B, 4, W),
     the groups added in order to the identity."""
     _check_curve(curve)
-    curve.base.require_words()
     tab = ff.to_digits(table)
     ident = curve._consts(table.device)["identity"]
     acc = ident.expand((idx.shape[0],) + ident.shape)
@@ -86,7 +85,7 @@ def grouped_msm(curve, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return grouped_msm_plain(curve, table, idx)
     _check_curve(curve)
     q = curve.base
-    W = q.require_words()
+    W = q.num_words
     check_operands("msm_te", table, idx, W)
     (G, E), B = table.shape[:2], idx.shape[0]
     out = torch.empty((B, 4, W), dtype=torch.int32, device=table.device)

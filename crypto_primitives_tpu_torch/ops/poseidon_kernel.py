@@ -57,7 +57,7 @@ def kernel_image(config) -> tuple:
     :func:`poseidon_sparse.kernel_rows` (Montgomery form) for the config's
     :func:`poseidon_sparse.port_schedule`."""
     spec = config.field
-    W = spec.require_words()
+    W = spec.num_words
     n_sparse, rows = poseidon_sparse.kernel_rows(config, poseidon_sparse.port_schedule(config))
     header = np.zeros(IMAGE_HEADER_WORDS, dtype=np.uint32)
     header[:W] = [(spec.p >> (32 * j)) & 0xFFFFFFFF for j in range(W)]
@@ -76,7 +76,7 @@ def permute(config, state: torch.Tensor) -> torch.Tensor:
     if state.device.type != "cuda":
         raise ValueError(f"poseidon_permute runs on CUDA or CPU tensors, not {state.device}")
     spec = config.field
-    W, t = spec.require_words(), config.t
+    W, t = spec.num_words, config.t
     if state.dtype != torch.int32 or state.dim() != 3 or tuple(state.shape[1:]) != (t, W):
         raise ValueError(f"state must be int32 (B, {t}, {W}), got {state.dtype} {tuple(state.shape)}")
     if not state.is_contiguous():

@@ -1,17 +1,27 @@
-"""The SHA-256 compression kernel and its plain PyTorch version.
+"""The SHA-256 kernel's two entry points and their plain PyTorch versions.
 
-``compress`` is the counterpart of the JAX package's TPU kernel
-``sha256_state_pallas`` (``ops/sha256_pallas.py``): FIPS 180-4 compression of
-pre-padded big-endian words ``(B, nblocks, 16)``, chained over the blocks from
-the initial state, giving ``(B, 8)`` state words.  Words are int32 tensors
-holding uint32 bit patterns.  On a CUDA tensor it launches
-``csrc/sha256_compress.cu`` (one thread per message); on a CPU tensor it runs
-:func:`compress_plain`, the JAX XLA path's arithmetic
-(``ops/sha256.py:_compress``) in int64.  There is no fallback between the two.
+Both are counterparts of the JAX package's TPU kernel ``sha256_state_pallas``
+(``ops/sha256_pallas.py``) and launch ``csrc/sha256_compress.cu`` (one thread
+per message, one copy of the rounds) on a CUDA tensor:
+
+  * ``digest``: a ``(B, n)`` uint8 batch of n-byte messages -> ``(B, 32)``
+    uint8 digests, FIPS 180-4 padding and byte order included, in one
+    launch; its plain version :func:`digest_plain` pads with ``torch.cat``
+    and runs :func:`compress_plain` between the two byte-order passes;
+  * ``compress``: pre-padded big-endian words ``(B, nblocks, 16)``, chained
+    over the blocks from the initial state, -> ``(B, 8)`` state words (the
+    TPU kernel's own contract); its plain version is :func:`compress_plain`,
+    the JAX XLA path's arithmetic (``ops/sha256.py:_compress``) in int64.
+
+Words are int32 tensors holding uint32 bit patterns.  A CPU tensor runs the
+plain version; there is no fallback between the two.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.native import build
@@ -41,8 +51,59 @@ M32 = 0xFFFFFFFF
 launches = 0
 
 
-def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
+def _rotr(x, n: int):
     return ((x >> n) | (x << (32 - n))) & M32
+
+
+def _schedule(w: list) -> list:
+    """A block's 16 words (Python ints or int64 tensors below 2^32) -> its
+    64-word message schedule."""
+    w = list(w)
+    for i in range(16, 64):
+        w15, w2 = w[i - 15], w[i - 2]
+        s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
+        s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+        w.append((w[i - 16] + s0 + w[i - 7] + s1) & M32)
+    return w
+
+
+def pad_length(n: int) -> int:
+    """Padded length of an n-byte message: n + 0x80 + zeros + 8-byte length,
+    rounded up to whole 64-byte blocks."""
+    return ((n + 1 + 8 + 63) // 64) * 64
+
+
+def padding(n: int) -> np.ndarray:
+    """The pad bytes that follow every n-byte message."""
+    pad = np.zeros((pad_length(n) - n,), dtype=np.uint8)
+    pad[0] = 0x80
+    pad[-8:] = np.frombuffer((8 * n).to_bytes(8, "big"), dtype=np.uint8)
+    return pad
+
+
+def bytes_to_words(data: torch.Tensor) -> torch.Tensor:
+    """``(B, 64 k)`` uint8 -> ``(B, k, 16)`` big-endian words (int32 bit
+    patterns)."""
+    b = data.shape[0]
+    by = data.reshape(b, -1, 4).flip(-1).contiguous()  # big- to little-endian
+    return by.view(torch.int32).reshape(b, -1, 16)
+
+
+def words_to_bytes(state: torch.Tensor) -> torch.Tensor:
+    """``(B, 8)`` state words -> ``(B, 32)`` big-endian digest bytes."""
+    b = state.shape[0]
+    return state.contiguous().view(torch.uint8).reshape(b, 8, 4).flip(-1).reshape(b, 32)
+
+
+@functools.lru_cache(maxsize=64)
+def padding_block_kw(n: int) -> np.ndarray:
+    """K[r] + W[r] (mod 2^32) for r < 64 over the fixed padding block of an
+    n-byte message (0x80, zeros, the bit length; the last block when
+    n % 64 == 0): the kernel runs that block's rounds from these constants
+    instead of expanding its schedule."""
+    nbits = 8 * n
+    w = _schedule([0x80000000] + [0] * 13 + [(nbits >> 32) & M32, nbits & M32])
+    return np.array([(k + x) & M32 for k, x in zip(K, w)], dtype=np.uint32)
 
 
 def compress_plain(words: torch.Tensor) -> torch.Tensor:
@@ -52,12 +113,7 @@ def compress_plain(words: torch.Tensor) -> torch.Tensor:
     batch = words.shape[0]
     state = [torch.full((batch,), h, dtype=torch.int64, device=words.device) for h in H0]
     for blk in range(words.shape[1]):
-        w = list(w_all[:, blk].unbind(-1))
-        for i in range(16, 64):
-            w15, w2 = w[i - 15], w[i - 2]
-            s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
-            s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
-            w.append((w[i - 16] + s0 + w[i - 7] + s1) & M32)
+        w = _schedule(w_all[:, blk].unbind(-1))
         a, b, c, d, e, f, g, h = state
         for i in range(64):
             s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
@@ -69,6 +125,42 @@ def compress_plain(words: torch.Tensor) -> torch.Tensor:
         state = [(x + y) & M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
     v = torch.stack(state, dim=-1)
     return ((v ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def digest_plain(msgs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch SHA-256: ``(B, n)`` uint8 -> ``(B, 32)`` uint8 digests."""
+    pad = torch.from_numpy(padding(msgs.shape[1])).to(msgs.device)
+    padded = torch.cat([msgs, pad.expand(msgs.shape[0], -1)], dim=1)
+    return words_to_bytes(compress_plain(bytes_to_words(padded)))
+
+
+def digest(msgs: torch.Tensor) -> torch.Tensor:
+    """SHA-256 of a ``(B, n)`` uint8 batch of n-byte messages -> ``(B, 32)``
+    uint8: one kernel launch for a CUDA tensor (16-byte loads where n is a
+    multiple of 16 and the batch starts on a 16-byte boundary, byte loads
+    otherwise), :func:`digest_plain` for a CPU one."""
+    if msgs.device.type == "cpu":
+        return digest_plain(msgs)
+    if msgs.device.type != "cuda":
+        raise ValueError(f"sha256_digest runs on CUDA or CPU tensors, not {msgs.device}")
+    if msgs.dtype != torch.uint8 or msgs.dim() != 2:
+        raise ValueError(f"messages must be uint8 (B, n), got {msgs.dtype} {tuple(msgs.shape)}")
+    if not msgs.is_contiguous():
+        raise ValueError("messages must be contiguous")
+    B, n = msgs.shape
+    out = torch.empty((B, 32), dtype=torch.uint8, device=msgs.device)
+    if B == 0:
+        return out
+    kw = padding_block_kw(n)
+    lib = build.load("sha256_compress")
+    err = lib.sha256_digest(
+        msgs.data_ptr(), out.data_ptr(), B, n, kw.ctypes.data,
+        msgs.device.index or 0, torch.cuda.current_stream(msgs.device).cuda_stream,
+    )
+    build.check(lib, err, "sha256_digest")
+    global launches
+    launches += 1
+    return out
 
 
 def compress(words: torch.Tensor) -> torch.Tensor:

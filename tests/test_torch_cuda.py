@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the Poseidon permutation, SHA-256 compression, both grouped MSMs on every
-curve they are built for, and the field arithmetic they share (through the
-test-only field probe).
+the Poseidon permutation, SHA-256 (both entry points), both grouped MSMs on
+every curve they are built for (``msm_sw`` also at every row split it takes),
+and the field arithmetic they share (through the test-only field probe).
 
 Every test here needs a CUDA device and skips without one.  On a machine with
 a card (and without JAX, which tests/conftest.py imports):
@@ -107,6 +107,22 @@ def test_sha256_on_the_card_matches_hashlib(cuda, n):
         assert bytes(digest) == hashlib.sha256(row.tobytes()).digest()
 
 
+@pytest.mark.parametrize("n", [0, 32, 55, 56, 64, 80, 119, 128])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_sha256_digest_kernel_matches_plain(cuda, n, aligned):
+    """The byte-row entry point: one launch per batch, equal to the plain
+    version; a batch that starts off a 16-byte boundary takes byte loads."""
+    g = torch.Generator(device="cuda").manual_seed(n)
+    rows = 1000
+    flat = torch.randint(0, 256, (rows * n + 1,), dtype=torch.uint8, device=cuda, generator=g)
+    msgs = (flat[: rows * n] if aligned else flat[1:]).view(rows, n)
+    before = sha256_kernel.launches
+    got = sha256(msgs)
+    assert sha256_kernel.launches == before + 1
+    assert torch.equal(got, sha256_kernel.digest_plain(msgs))
+    assert bytes(got[0].cpu().numpy()) == hashlib.sha256(msgs[0].cpu().numpy().tobytes()).digest()
+
+
 def _a3_curve():
     """y^2 = x^3 - 3x + 1 over BLS12-381 Fr (a != 0; see test_torch_curve.py)."""
     from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
@@ -114,7 +130,7 @@ def _a3_curve():
     return SWCurveSpec("test_a3", BLS12_381_FR, BLS12_381_FR, -3, 1, 1, (0, 1))
 
 
-@pytest.mark.parametrize("name", ["JUBJUB", "ED_ON_BLS12_377", "ED25519", "PALLAS", "BLS12_381_G1", "A3"])
+@pytest.mark.parametrize("name", ["JUBJUB", "ED_ON_BLS12_377", "ED25519", "PALLAS", "BLS12_381_G1", "A3", "SECP256R1"])
 @pytest.mark.parametrize("w", [2, 3])
 @pytest.mark.parametrize("npts", [20, 100])
 def test_msm_kernels_match_plain(cuda, name, w, npts):
@@ -141,6 +157,30 @@ def test_msm_kernels_match_plain(cuda, name, w, npts):
         assert torch.equal(got, kern.grouped_msm_plain(curve, table, idx))
 
 
+@pytest.mark.parametrize("name", ["BLS12_381_G1", "SECP256R1"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+def test_msm_sw_kernel_matches_plain_at_every_split(cuda, monkeypatch, name, k):
+    """msm_sw with each row split over k threads (shuffles where k divides
+    32, shared memory otherwise), against the plain version at the same k:
+    40 groups (not a multiple of 3 or 8), and 2 groups (fewer than k)."""
+    import random
+
+    from crypto_primitives_tpu_torch.ops import curve_sw_fast, curves_known, msm_sw_kernel
+
+    curve = getattr(curves_known, name)
+    monkeypatch.setitem(msm_sw_kernel.SPLIT, (curve.base.num_words, curve.a == 0), k)
+    assert msm_sw_kernel.split_of(curve) == k
+    rng = random.Random(k)
+    pts = [curve.rand_point(rng) for _ in range(120)]
+    table = torch.from_numpy(curve_sw_fast.pack_table_grouped(curve, pts, 3)).to(cuda)
+    g = torch.Generator(device="cuda").manual_seed(k)
+    for groups in (40, 2):
+        tab = table[:groups].contiguous()
+        idx = torch.randint(0, 8, (300, groups), dtype=torch.int32, device=cuda, generator=g)
+        idx[0], idx[1] = 0, 7
+        assert torch.equal(msm_sw_kernel.grouped_msm(curve, tab, idx), msm_sw_kernel.grouped_msm_plain(curve, tab, idx))
+
+
 def test_msm_kernels_refuse_what_they_do_not_take(cuda):
     from crypto_primitives_tpu_torch.ops import curves_known, msm_kernel, msm_sw_kernel
     from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
@@ -156,6 +196,16 @@ def test_msm_kernels_refuse_what_they_do_not_take(cuda):
         msm_kernel.grouped_msm(te, table[:, :, :2].contiguous(), idx)  # not 3 coordinates
     with pytest.raises(ValueError):
         msm_kernel.grouped_msm(te, table, idx.cpu())  # two devices
+    # a row split the kernel does not take (k = 5 needs blocks of 160
+    # threads): the C entry point refuses it
+    from crypto_primitives_tpu_torch.ops import curve_sw_fast
+
+    g1 = curves_known.BLS12_381_G1
+    g1_table = torch.from_numpy(curve_sw_fast.pack_table_grouped(g1, [g1.generator] * 6, 3)).to(cuda)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(msm_sw_kernel.SPLIT, (12, True), 5)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            msm_sw_kernel.grouped_msm(g1, g1_table, torch.zeros((4, 2), dtype=torch.int32, device=cuda))
     # a W = 12 curve with a != 0 has no instantiation: the C entry point refuses it
     from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
     from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FQ
@@ -180,7 +230,7 @@ def test_field_probe_matches_plain_on_edge_values(cuda, field, op):
     spec = getattr(fields_known, field)
     pairs = list(itertools.product(field_probe.edge_values(spec), repeat=2))
     rng = np.random.default_rng(7)
-    nbytes = 4 * spec.require_words() + 8
+    nbytes = 4 * spec.num_words + 8
     pairs += [tuple(int.from_bytes(rng.bytes(nbytes), "little") % spec.p for _ in range(2)) for _ in range(4096)]
     a = torch.from_numpy(spec.pack([x for x, _ in pairs], mont=False)).to(cuda)
     b = torch.from_numpy(spec.pack([y for _, y in pairs], mont=False)).to(cuda)

@@ -24,7 +24,6 @@ from crypto_primitives_tpu.ops import field as jff
 from crypto_primitives_tpu.ops.curve_sw import SWCurveSpec as JSWCurveSpec
 from crypto_primitives_tpu.ops.fields_known import BLS12_381_FR as JFR
 from crypto_primitives_tpu_torch import interop
-from crypto_primitives_tpu_torch.errors import UnsupportedField
 from crypto_primitives_tpu_torch.ops import curve as tcv
 from crypto_primitives_tpu_torch.ops import curve_sw as tsw
 from crypto_primitives_tpu_torch.ops import curves_known as tck
@@ -106,27 +105,28 @@ def _points(j, t, seed, n):
     return lhs, rhs
 
 
-@pytest.mark.parametrize("name", TE_NAMES + ["PALLAS", "BLS12_381_G1", "A3"])
+@pytest.mark.parametrize("name", TE_NAMES + SW_NAMES + ["A3"])
 def test_batched_add_neg_affine_match_jax_words(name):
     j, t = _pair(name)
     lhs, rhs = _points(j, t, 5, 4)
     jl, jr = j.pack_points(lhs), j.pack_points(rhs)
     tl, tr = torch.from_numpy(t.pack_points(lhs)), torch.from_numpy(t.pack_points(rhs))
-    assert np.array_equal(interop.words_from_limbs(jl), tl.numpy())
+    q = t.base  # P-256's Montgomery forms are rescaled across (R = 2^272 in JAX, 2^288 here)
+    assert np.array_equal(interop.words_from_limbs(jl, q), tl.numpy())
     if name in TE_NAMES:
         jadd, tadd, jneg, tneg, jaff, taff = jcv.te_add, tcv.te_add, jcv.te_neg, tcv.te_neg, jcv.te_to_affine, tcv.te_to_affine
     else:
         jadd, tadd, jneg, tneg, jaff, taff = jsw.sw_add, tsw.sw_add, jsw.sw_neg, tsw.sw_neg, jsw.sw_to_affine, tsw.sw_to_affine
     jsum = np.asarray(jadd(j, jnp.asarray(jl), jnp.asarray(jr)))
     tsum = tadd(t, tl, tr)
-    assert np.array_equal(interop.words_from_limbs(jsum), tsum.numpy())  # word for word
+    assert np.array_equal(interop.words_from_limbs(jsum, q), tsum.numpy())  # word for word
     want = [t.add_host(a, b) for a, b in zip(lhs, rhs)]
     assert list(t.unpack_points(tsum)) == want
-    assert np.array_equal(interop.words_from_limbs(np.asarray(jneg(j, jnp.asarray(jl)))), tneg(t, tl).numpy())
+    assert np.array_equal(interop.words_from_limbs(np.asarray(jneg(j, jnp.asarray(jl))), q), tneg(t, tl).numpy())
     # the affine step: Fermat inversion; an SW identity maps to (0, 0)
     jxy = np.asarray(jaff(j, jnp.asarray(jsum)))
     txy = taff(t, tsum)
-    assert np.array_equal(interop.words_from_limbs(jxy), txy.numpy())
+    assert np.array_equal(interop.words_from_limbs(jxy, q), txy.numpy())
     host = [(0, 0) if pt is None else pt for pt in want]
     assert [tuple(int(v) for v in row) for row in t.base.unpack(txy)] == host
 
@@ -155,11 +155,22 @@ def test_batched_sums_match_host(name):
             assert got[b] == want
 
 
-def test_p256_batched_tier_raises():
-    t = tck.SECP256R1
-    assert t.add_host(t.generator, t.generator) == jck.SECP256R1.add_host(t.generator, t.generator)
-    with pytest.raises(UnsupportedField):
-        t.pack_points([t.generator])
+def test_p256_points_pack_and_unpack_match_jax():
+    """P-256 on the batched tier: packed points (the identity among them)
+    equal the JAX package's after interop's rescaling, both ways, and unpack
+    to the same host points; the projective sum of a doubling pair equals
+    JAX's ``sw_add`` after canonicalising."""
+    j, t = _pair("SECP256R1")
+    rng = random.Random(12)
+    pts = [t.rand_point(rng) for _ in range(5)] + [None, t.generator]
+    jl, tw = j.pack_points(pts), t.pack_points(pts)
+    assert tw.shape == (7, 3, 9) and jl.shape == (7, 3, 17)
+    assert np.array_equal(interop.words_from_limbs(jl, t.base), tw)
+    assert np.array_equal(interop.limbs_from_words(tw, t.base), jl)
+    assert t.unpack_points(tw) == j.unpack_points(jl) == pts
+    doubled = tsw.sw_add(t, torch.from_numpy(tw), torch.from_numpy(tw))
+    jdoubled = np.asarray(jsw.sw_add(j, jnp.asarray(jl), jnp.asarray(jl)))
+    assert t.unpack_points(doubled) == j.unpack_points(jdoubled) == [t.double_host(pt) for pt in pts]
 
 
 @pytest.mark.parametrize("fname", ["BLS12_381_FR", "BLS12_381_FQ"])

@@ -2,7 +2,9 @@
 
 Same inputs (made from a seed with numpy) go through both packages on the CPU;
 limbs cross via crypto_primitives_tpu_torch.interop and are compared exactly,
-word for word, and as Python ints.
+word for word, and as Python ints.  P-256's fields, whose Montgomery R differs
+between the two packages (2^272 and 2^288), cross with their spec, which
+rescales the Montgomery forms.
 """
 
 import jax.numpy as jnp
@@ -11,9 +13,10 @@ import pytest
 import torch
 
 from crypto_primitives_tpu.ops import field as jff
+from crypto_primitives_tpu.ops import curves_known as jck
 from crypto_primitives_tpu.ops import fields_known as jfk
 from crypto_primitives_tpu_torch import interop
-from crypto_primitives_tpu_torch.errors import UnsupportedField
+from crypto_primitives_tpu_torch.ops import curves_known as tck
 from crypto_primitives_tpu_torch.ops import field as tff
 from crypto_primitives_tpu_torch.ops import fields_known as tfk
 
@@ -90,14 +93,72 @@ def test_pow_const_matches_host(fields):
     assert list(tspec.unpack(got)) == [pow(v, 17, tspec.p) for v in vals]
 
 
-def test_field_without_word_layout_raises():
-    p256 = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
-    spec = tff.FieldSpec("p256", p256)
-    assert spec.num_limbs == 17 and spec.R == jff.FieldSpec("p256", p256).R
-    with pytest.raises(UnsupportedField):
-        spec.pack([1])
-    with pytest.raises(UnsupportedField):
-        tff.zeros(spec, (2,))
+def _known_specs():
+    specs = tfk.ALL_FIELDS + [tfk.BLS12_381_FQ]
+    for c in tck.TE_CURVES + tck.SW_CURVES:
+        specs += [c.base, c.scalar]
+    return list({id(s): s for s in specs}.values())
+
+
+def test_word_layout_rule_on_every_known_field():
+    """W = ceil(nbits / 32) plus a spare word when p fills its words: the JAX
+    R = 2^(16 L) for every known field but P-256's two, which take W = 9 and
+    R = 2^288; every p keeps the spare top bit the kernels need."""
+    p256 = {tck.SECP256R1_FQ.name, tck.SECP256R1_FR.name}
+    specs = _known_specs()
+    assert len(specs) == 11 and p256 <= {s.name for s in specs}
+    for s in specs:
+        assert s.p < 1 << (32 * s.num_words - 1), s.name
+        assert s.R == 1 << (32 * s.num_words) and s.num_digits == 2 * s.num_words
+        if s.name in p256:
+            assert (s.num_limbs, s.num_words, s.R) == (17, 9, 1 << 288)
+        else:
+            assert s.num_limbs == 2 * s.num_words and s.R == 1 << (16 * s.num_limbs), s.name
+
+
+@pytest.mark.parametrize("name", ["SECP256R1_FQ", "SECP256R1_FR"])
+def test_p256_field_matches_jax(name):
+    """P-256's fields on the batched tier: pack, unpack, add, sub, the
+    Montgomery product and conversions equal the JAX package's, across
+    interop's rescaling of the Montgomery forms."""
+    jspec, tspec = getattr(jck, name), getattr(tck, name)
+    assert (tspec.p, tspec.nbits, tspec.num_limbs, tspec.n0, tspec.bigint_bytes) == \
+        (jspec.p, jspec.nbits, jspec.num_limbs, jspec.n0, jspec.bigint_bytes)
+    a, b = _values(jspec.p, 6), _values(jspec.p, 7)[::-1]
+    ja, jb = jspec.pack(a), jspec.pack(b)
+    ta, tb = tspec.pack(a), tspec.pack(b)
+    assert np.array_equal(interop.words_from_limbs(ja, tspec), ta)
+    assert list(tspec.unpack(ta)) == a
+    for op in ("add", "sub", "mont_mul"):
+        want = np.asarray(getattr(jff, op)(jspec, jnp.asarray(ja), jnp.asarray(jb)))
+        got = getattr(tff, op)(tspec, torch.from_numpy(ta), torch.from_numpy(tb)).numpy()
+        assert np.array_equal(got, interop.words_from_limbs(want, tspec)), op
+        assert list(tspec.unpack(got)) == list(jspec.unpack(want)), op
+    std = jspec.pack(a, mont=False)
+    got_to = tff.to_mont(tspec, torch.from_numpy(interop.words_from_limbs(std, tspec, mont=False))).numpy()
+    assert np.array_equal(got_to, interop.words_from_limbs(np.asarray(jff.to_mont_device(jspec, jnp.asarray(std))), tspec))
+    got_from = tff.from_mont(tspec, torch.from_numpy(ta)).numpy()
+    want_from = np.asarray(jff.from_mont_device(jspec, jnp.asarray(ja)))
+    assert np.array_equal(interop.limbs_from_words(got_from, tspec, mont=False), want_from)
+
+
+@pytest.mark.parametrize("name", ["SECP256R1_FQ", "BLS12_381_FR", "BLS12_381_FQ"])
+@pytest.mark.parametrize("mont", [True, False])
+def test_interop_round_trips_jax_limbs(name, mont):
+    """JAX limbs -> port words -> JAX limbs is the identity; for a field whose
+    R is the same in both packages the words are the digits paired, with no
+    arithmetic."""
+    jspec = getattr(jck, name) if name.startswith("SECP") else getattr(jfk, name)
+    tspec = getattr(tck, name) if name.startswith("SECP") else getattr(tfk, name)
+    vals = _values(jspec.p, 8)
+    limbs = jspec.pack(vals, mont=mont)
+    words = interop.words_from_limbs(limbs, tspec, mont=mont)
+    assert words.shape == (N, tspec.num_words)
+    assert np.array_equal(words, tspec.pack(vals, mont=mont))
+    assert np.array_equal(interop.limbs_from_words(words, tspec, mont=mont), limbs)
+    if tspec.num_digits == tspec.num_limbs:
+        assert np.array_equal(interop.words_from_limbs(limbs), words)
+        assert np.array_equal(interop.limbs_from_words(words), limbs)
 
 
 @pytest.mark.parametrize("name", ["BLS12_381_FR", "BLS12_377_FR", "BLS12_381_FQ"])
@@ -109,7 +170,7 @@ def test_field_probe_plain_ops_on_edge_values(name):
     from crypto_primitives_tpu_torch.ops import field_probe
 
     spec = getattr(tfk, name)
-    p, R = spec.p, 1 << (32 * spec.require_words())
+    p, R = spec.p, 1 << (32 * spec.num_words)
     vals = field_probe.edge_values(spec)
     assert 0 in vals and p - 1 in vals and R % p in vals and all(0 <= v < p for v in vals)
     pairs = list(itertools.product(vals, repeat=2))

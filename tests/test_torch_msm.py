@@ -23,6 +23,7 @@ from crypto_primitives_tpu.ops import curves_known as jck
 from crypto_primitives_tpu.ops.curve_sw import SWCurveSpec as JSWCurveSpec
 from crypto_primitives_tpu.ops.fields_known import BLS12_381_FR as JFR
 from crypto_primitives_tpu_torch.ops import curve_fast, curve_sw_fast, msm_kernel, msm_sw_kernel
+from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops import curves_known as tck
 from crypto_primitives_tpu_torch.ops.curve import TECurveSpec
 from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
@@ -71,7 +72,7 @@ def _affine(t, aff_words):
 
 
 @pytest.mark.parametrize("name,w", [("JUBJUB", 2), ("JUBJUB", 3), ("JUBJUB", 4), ("ED_ON_BLS12_377", 3),
-                                    ("PALLAS", 3), ("BLS12_381_G1", 3), ("A3", 3)])
+                                    ("PALLAS", 3), ("BLS12_381_G1", 3), ("A3", 3), ("SECP256R1", 3)])
 def test_grouped_sum_matches_jax(name, w):
     j, t = _pair(name)
     pts = _setup(t, 100 + w)
@@ -182,3 +183,77 @@ def test_grouped_sum_runs_only_the_groups_the_bits_reach(name):
     assert _affine(t, mod.to_affine(t, short)) == [_host_sum(t, pts, row) for row in bits.numpy()]
     with pytest.raises(ValueError):
         curve_fast.grouped_operands(table, torch.zeros((1, 16), dtype=torch.uint8), 3)
+
+
+def test_p256_grouped_msm_matches_jax_with_identity_padding():
+    """P-256 (a = -3, W = 9): 7 points at w = 3 leave the last group two
+    identity entries; the all-zero row sums to the identity.  The port's
+    grouped sum equals JAX's ``sw_conditional_sum_grouped_rns`` and the host
+    oracle, as affine points."""
+    j, t = _pair("SECP256R1")
+    rng = random.Random(21)
+    pts = [t.rand_point(rng) for _ in range(7)]
+    bits = np.asarray([[rng.randrange(2) for _ in range(7)] for _ in range(4)], dtype=np.uint8)
+    bits[0] = 0
+    table = curve_sw_fast.pack_table_grouped(t, pts, 3)
+    assert table.shape == (3, 8, 3, 9)
+    jout = jsr.sw_conditional_sum_grouped_rns(j, jnp.asarray(jsr.pack_table_grouped(j, pts, 3)), jnp.asarray(bits), 3)
+    tout = curve_sw_fast.sw_conditional_sum_grouped(t, torch.from_numpy(table), torch.from_numpy(bits), 3)
+    want = list(jsr.unpack_affine_rns(j, np.asarray(jout)))
+    assert want[0] is None
+    assert _affine(t, curve_sw_fast.to_affine(t, tout)) == want == [_host_sum(t, pts, row) for row in bits]
+
+
+_BUILDS = {(8, True): "PALLAS", (8, False): "A3", (9, False): "SECP256R1", (12, True): "BLS12_381_G1"}
+
+
+def test_split_table_names_every_build():
+    """One k per kernel build, one the kernel takes (1, 2, 3, 4 or 8); a
+    curve with no build takes 1."""
+    assert set(msm_sw_kernel.SPLIT) == set(_BUILDS)
+    assert set(msm_sw_kernel.SPLIT.values()) <= {1, 2, 3, 4, 8}
+    for key, name in _BUILDS.items():
+        assert msm_sw_kernel.split_of(_pair(name)[1]) == msm_sw_kernel.SPLIT[key]
+    from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FQ
+
+    assert msm_sw_kernel.split_of(SWCurveSpec("g1_a1", BLS12_381_FQ, BLS12_381_FR, 1, 4, 1)) == 1
+
+
+@pytest.mark.parametrize("key", sorted(_BUILDS))
+@pytest.mark.parametrize("case", ["G_not_divisible_by_k", "G_below_k"])
+def test_split_plain_sum_matches_unsplit_and_jax(key, case):
+    """The plain version at each build's k: its projective words may differ
+    from the unsplit in-order sum's (another order of additions), but the
+    affine sums equal the unsplit sum's, JAX's and the host oracle's, with
+    G not a multiple of k, or G < k (threads with no group merge the
+    identity)."""
+    j, t = _pair(_BUILDS[key])
+    k = msm_sw_kernel.SPLIT[key]
+    groups = k + 1 if case == "G_not_divisible_by_k" else max(k - 1, 1)
+    n = 3 * groups - 1  # the last group holds an identity entry
+    pts = _setup(t, 30 + groups, n=n)
+    bits = _bits(n, ROWS, groups)
+    table = torch.from_numpy(curve_sw_fast.pack_table_grouped(t, pts, 3))
+    idx = curve_fast.window_indices(torch.from_numpy(bits), groups, 3)
+    split = msm_sw_kernel.grouped_msm_plain(t, table, idx)
+    unsplit = ff.from_digits(msm_sw_kernel.split_sum_digits(t, ff.to_digits(table), idx, 1))
+    got = _affine(t, curve_sw_fast.to_affine(t, split))
+    assert got == _affine(t, curve_sw_fast.to_affine(t, unsplit))
+    jout = jsr.sw_conditional_sum_grouped_rns(j, jnp.asarray(jsr.pack_table_grouped(j, pts, 3)), jnp.asarray(bits), 3)
+    assert got == list(jsr.unpack_affine_rns(j, np.asarray(jout))) == [_host_sum(t, pts, row) for row in bits]
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+def test_split_sum_at_every_k_tried(k):
+    """The split sum at each k > 1 the kernel takes: 13 groups over k ranges,
+    and 2 groups with k - 2 empty ranges, equal the unsplit sum as affine
+    points."""
+    _, t = _pair("PALLAS")
+    pts = _setup(t, 40 + k, n=39)
+    bits = _bits(39, ROWS, k)
+    table = ff.to_digits(torch.from_numpy(curve_sw_fast.pack_table_grouped(t, pts, 3)))
+    idx = curve_fast.window_indices(torch.from_numpy(bits), 13, 3)
+    for G in (13, 2):
+        got = ff.from_digits(msm_sw_kernel.split_sum_digits(t, table[:G], idx[:, :G].contiguous(), k))
+        want = ff.from_digits(msm_sw_kernel.split_sum_digits(t, table[:G], idx[:, :G].contiguous(), 1))
+        assert _affine(t, curve_sw_fast.to_affine(t, got)) == _affine(t, curve_sw_fast.to_affine(t, want))

@@ -122,7 +122,7 @@ def _walk_image(cfg, n_sparse, image, state):
     """The permutation as the kernel computes it from its constant-bank image:
     the same offsets and round logic as permute_kernel, in Python ints."""
     spec = cfg.field
-    W, p, t = spec.require_words(), spec.p, cfg.t
+    W, p, t = spec.num_words, spec.p, cfg.t
     assert int(image[15]) == spec.n0_word
     assert sum(int(image[j]) << (32 * j) for j in range(W)) == p
     body = image[poseidon_kernel.IMAGE_HEADER_WORDS:].astype(np.int64) & 0xFFFFFFFF
@@ -161,7 +161,7 @@ def test_kernel_image_layout(name, rate, weights):
     the kernel's offsets gives the reference permutation."""
     cfg = _singular_config() if name == "singular" else _configs(name, rate, weights)[1]
     n_sparse, image = poseidon_kernel.kernel_image(cfg)
-    W, t, R_T = cfg.field.require_words(), cfg.t, cfg.full_rounds + cfg.partial_rounds
+    W, t, R_T = cfg.field.num_words, cfg.t, cfg.full_rounds + cfg.partial_rounds
     rows = t + 2 * t * t + n_sparse * (2 * t - 1) + n_sparse + (R_T - n_sparse) * t
     assert image.dtype == np.uint32
     assert image.shape == (poseidon_kernel.IMAGE_HEADER_WORDS + W * rows,)

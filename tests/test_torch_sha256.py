@@ -15,7 +15,7 @@ from crypto_primitives_tpu_torch.ops import sha256_kernel
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("n", [0, 55, 56, 64, 119, 120, 200])
+@pytest.mark.parametrize("n", [0, 32, 55, 56, 64, 80, 119, 120, 128, 200])
 def test_padding_edges_match_hashlib_and_jax(n):
     rng = np.random.default_rng(100 + n)
     msgs = rng.integers(0, 256, (3, n), dtype=np.uint8)
@@ -67,3 +67,44 @@ def test_entry_point_without_device_needs_cuda():
 
     with pytest.raises(DeviceUnavailable):
         tsha.sha256(np.zeros((1, 4), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("n", [0, 64, 128])
+def test_padding_block_constants_give_the_digest(n):
+    """The kernel runs the fixed padding block of an n-byte message
+    (n % 64 == 0) from the 64 sums K[r] + W[r] of ``padding_block_kw``,
+    without its schedule: the same rounds in Python ints, from the state
+    after the message's own blocks, give hashlib's digest."""
+    M = 0xFFFFFFFF
+
+    def rotr(x, r):
+        return ((x >> r) | (x << (32 - r))) & M
+
+    msg = np.random.default_rng(n).integers(0, 256, (1, n), dtype=np.uint8)
+    if n:
+        state = [int(v) & M for v in sha256_kernel.compress_plain(tsha.bytes_to_words(torch.from_numpy(msg)))[0]]
+    else:
+        state = list(sha256_kernel.H0)
+    kw = sha256_kernel.padding_block_kw(n)
+    assert kw.shape == (64,) and kw.dtype == np.uint32
+    a, b, c, d, e, f, g, h = state
+    for r in range(64):
+        t1 = (h + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) + ((e & f) ^ (~e & M & g)) + int(kw[r])) & M
+        t2 = ((rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) + ((a & b) ^ (a & c) ^ (b & c))) & M
+        a, b, c, d, e, f, g, h = (t1 + t2) & M, a, b, c, (d + t1) & M, e, f, g
+    out = b"".join(((x + y) & M).to_bytes(4, "big") for x, y in zip(state, (a, b, c, d, e, f, g, h)))
+    assert out == hashlib.sha256(msg.tobytes()).digest()
+
+
+def test_digest_wrapper_on_cpu_is_the_plain_version():
+    """``digest`` on a CPU tensor runs ``digest_plain`` and launches nothing;
+    a view that is not contiguous is copied by ``sha256`` and refused by
+    ``digest`` only on a CUDA tensor."""
+    rng = np.random.default_rng(5)
+    msgs = torch.from_numpy(rng.integers(0, 256, (6, 80), dtype=np.uint8))
+    before = sha256_kernel.launches
+    got = sha256_kernel.digest(msgs)
+    assert sha256_kernel.launches == before
+    assert torch.equal(got, sha256_kernel.digest_plain(msgs))
+    cols = msgs[:, ::2]
+    assert torch.equal(tsha.sha256(cols, device="cpu"), sha256_kernel.digest_plain(cols.contiguous()))
