@@ -16,7 +16,8 @@ Phases (each prints a flushed line before and after, with its seconds):
      P-256 among them; SHA-256's byte entry at message lengths around the
      padding's edges, with 16-byte and byte loads), and the shared field
      arithmetic (csrc/field_probe.cu) against the plain field tier on edge
-     values at W = 8 and W = 12;
+     values at W = 8 and W = 12; both MSM kernels at the fixed-base shapes,
+     20 (msm_te) and 84, 85 and 86 groups of doubling powers;
   4. the hashing paths at full size: a SHA-256 and a Poseidon Merkle tree
      over 2^20 leaves each, built, proved and verified (the SHA-256 build
      launches its kernel once per hashed level);
@@ -24,6 +25,17 @@ Phases (each prints a flushed line before and after, with its seconds):
      ed-on-bls12-377 (window 250 x 8, 128-byte inputs, 2^16 rows) and over
      BLS12-381 G1 (2^14 rows), and a 2^16-leaf Pedersen Merkle tree over
      JubJub, each held on sampled rows against the host oracle;
+  7. signatures and encryption (run after phase 5, before phase 6): Schnorr
+     keygen_batch, sign_batch (4 candidates a message) and verify_batch
+     (true signatures, then every 16th message altered) on 2^14 keys with
+     128-byte messages, and ElGamal encrypt_batch (2^14 messages: r pk
+     fixed-base; 16 messages: r pk windowed) and decrypt_batch round trips,
+     on ed-on-bls12-377, and the same at 2^12 on BLS12-381 G1; 64
+     sampled rows of every output held against the host tier; each call's
+     wall time and its MSM, windowed and affine steps (the steps run again
+     alone); msm_te at 2^16 rows x 84 groups and msm_sw at 2^16 x 85 (the
+     fixed-base shape of 2^14 messages' signing pass) timed beside their
+     bounds;
   6. times: each kernel at its path's shape (its output there held on 4096
      random rows against the plain version), the plain version's time, and
      the bound the card sets; SHA-256's byte entry at 2^19 messages of 64
@@ -31,7 +43,8 @@ Phases (each prints a flushed line before and after, with its seconds):
      80 bytes (its first inner level), and its word entry at 2^19 two-block
      messages.
 Every path runs with the kernel launch counts set to 0 just before it and
-read just after; a path whose kernel did not launch fails.  It needs CUDA and
+read just after; a path whose kernel did not launch fails (decrypt_batch
+runs none, as in the JAX package: it is required to launch none).  It needs CUDA and
 the repository: without either it exits non-zero before printing a result.
 The last line is the JSON result.
 """
@@ -56,6 +69,13 @@ TE_ROWS = 1 << 16  # Pedersen CRH and commitment rows on ed-on-bls12-377
 SW_ROWS = 1 << 14  # the same on BLS12-381 G1
 PEDERSEN_LEAVES = 1 << 16
 SAMPLE = 64  # rows of each curve path held against the host oracle
+SIG_ROWS = 1 << 14  # phase 7: Schnorr keys and ElGamal messages on ed-on-bls12-377
+# ... and on BLS12-381 G1, cut from 2^14 to keep the smoke's time: at 2^14
+# its calls took 75 s, most of it the plain-torch windowed products
+SIG_ROWS_G1 = 1 << 12
+FIXED_BASE_ROWS = 1 << 16  # msm_te and msm_sw timed at the fixed-base shape
+SIG_MSG_BYTES = 128
+ELGAMAL_SMALL = 16  # below 32 messages, ElGamal's r pk takes the windowed route
 HOST_TOP = 8  # the Pedersen tree's top 8 levels are recomputed on the host
 
 # Pinned BLS12-381 Fr sponge output: absorb [0, 1, 2], squeeze 3
@@ -78,6 +98,20 @@ PEAK_OPS_PER_S = 67e12
 # plus 3 by a when a != 0.
 def msm_products(curve) -> int:
     return 8 if curve.coords == 4 else (14 if curve.a == 0 else 17)
+
+
+def msm_bound(curve, table, idx):
+    """(bytes, operations) of one grouped MSM: indices and table read once,
+    the sums written once; msm_products(curve) products per row and group."""
+    W = curve.base.num_words
+    nbytes = idx.numel() * 4 + idx.shape[0] * curve.coords * W * 4 + table.numel() * 4
+    return nbytes, idx.numel() * msm_products(curve) * 2 * (4 * W * W + W)
+
+
+def bound_ms(nbytes, nops):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def general_a_curve():
@@ -411,6 +445,26 @@ def main() -> int:
             log(f"  {name} {curve.name} (W={curve.base.num_words}, a={'0' if curve.a == 0 else 'p-1' if curve.a == curve.base.p - 1 else curve.a - curve.base.p}{split}): "
                 f"{CHECK_ROWS} rows x {table.shape[0]} groups equal")
 
+        # the fixed-base shapes: doubling-power tables of 20 groups (msm_te,
+        # below its 32-group index tile) and 84, 85 and 86 groups (G mod 3 =
+        # 0, 1, 2: msm_sw's k = 3 ranges of unequal length)
+        for curve in (JUBJUB, ED_ON_BLS12_377, BLS12_381_G1, SECP256R1):
+            mod = fast_mod(curve)
+            kern, name = (msm_kernel, "msm_te") if curve.coords == 4 else (msm_sw_kernel, "msm_sw")
+            groups = []
+            for nbits in ((60,) if curve.coords == 4 else ()) + (252, 255, 256):
+                table = torch.from_numpy(mod.fixed_base_grouped_table(curve, curve.generator, nbits)).cuda()
+                bits = torch.randint(0, 2, (CHECK_ROWS, nbits), dtype=torch.uint8, device="cuda", generator=gen)
+                bits[0], bits[1] = 0, 1
+                table, idx = curve_fast.grouped_operands(table, bits, 3)
+                got = kern.grouped_msm(curve, table, idx)
+                want = kern.grouped_msm_plain(curve, table, idx)
+                torch.cuda.synchronize()
+                errs[name] = max(errs[name], max_abs_err(got, want))
+                require(torch.equal(got, want), f"{name} == plain on {curve.name}'s fixed-base table, {nbits} bits")
+                groups.append(table.shape[0])
+            log(f"  {name} {curve.name} fixed-base tables: {CHECK_ROWS} rows x {groups} groups equal")
+
     launches = dict.fromkeys(KERNELS, 0)
     with Phase("phase 4: hashing paths at 2^20 leaves"):
         torch.cuda.reset_peak_memory_stats()
@@ -574,6 +628,161 @@ def main() -> int:
                 f"to-affine {time.time() - t:.3f} s")
         log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    with Phase("phase 7: signatures and encryption"):
+        from crypto_primitives_tpu_torch.models.encryption import ElGamal
+        from crypto_primitives_tpu_torch.models.signature import Schnorr
+
+        torch.cuda.reset_peak_memory_stats()
+        summary = []
+
+        def step(fn):
+            """fn() and its seconds, between two synchronisations."""
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.time() - t
+
+        for curve, kname, rows in ((ED_ON_BLS12_377, "msm_te", SIG_ROWS), (BLS12_381_G1, "msm_sw", SIG_ROWS_G1)):
+            mod = fast_mod(curve)
+            kern = msm_kernel if kname == "msm_te" else msm_sw_kernel
+            srng, split_rng = random.Random(SEED + 7), random.Random(SEED + 8)
+            sample = sorted(random.Random(SEED).sample(range(rows), SAMPLE))
+
+            def bits_of(scalars):
+                return torch.from_numpy(mod.scalars_to_bits(curve, scalars)).cuda()
+
+            def points(pts):
+                return torch.from_numpy(mod.pack_points(curve, pts)).cuda()
+
+            def call(path, fn, needs):
+                """One entry point, driven with the launch counts reset;
+                returns its output, wall seconds and launches."""
+                t = time.time()
+                out, counts = drive(path, fn, needs)
+                launches[kname] += counts[kname]
+                return out, time.time() - t, counts[kname]
+
+            def record(path, n, wall, nl, msm=0.0, win=0.0, aff=0.0):
+                summary.append((f"{path}, {curve.name}", n, wall, msm, win, aff, nl))
+                log(f"    steps run again alone: MSM {msm:.3f} s, windowed {win:.3f} s, affine {aff:.3f} s; "
+                    f"the rest of the wall time (host) {wall - msm - win - aff:.3f} s")
+
+            scheme = Schnorr(curve)
+            params = scheme.setup(srng)
+            G = params.generator
+            keys, wall, nl = call(f"Schnorr keygen_batch, {curve.name}, {rows} keys",
+                                  lambda: scheme.keygen_batch(params, srng, rows), [kname])
+            pks, sks = [pk for pk, _ in keys], [sk for _, sk in keys]
+            require(all(pks[i] == curve.scalar_mul_host(G, sks[i]) for i in sample),
+                    f"{SAMPLE} keygen_batch rows == host keygen on {curve.name}")
+            bits = bits_of(sks)
+            pts, t_msm = step(lambda: mod.fixed_base_mul(curve, G, bits))
+            _, t_aff = step(lambda: mod.unpack_affine(curve, pts))
+            record("Schnorr keygen_batch", rows, wall, nl, msm=t_msm, aff=t_aff)
+
+            msg_rows = torch.randint(0, 256, (rows, SIG_MSG_BYTES), dtype=torch.uint8, device="cuda", generator=gen)
+            msgs = [row.tobytes() for row in msg_rows.cpu().numpy()]
+            sigs, wall, nl = call(f"Schnorr sign_batch, {curve.name}, {rows} messages x 4 candidates",
+                                  lambda: scheme.sign_batch(params, sks, msgs, srng), [kname])
+            require(all(scheme.verify(params, pks[i], msgs[i], sigs[i]) for i in sample),
+                    f"the host verify accepts {SAMPLE} sampled signatures on {curve.name}")
+            # the first pass's steps at its shape: 4 candidates a message
+            kbits = bits_of([split_rng.randrange(curve.scalar.p) for _ in range(4 * rows)])
+            cand, t_msm = step(lambda: mod.fixed_base_mul(curve, G, kbits))
+            _, t_aff = step(lambda: mod.unpack_affine(curve, cand))
+            record("Schnorr sign_batch (the split: its first pass, 4 candidates a message)", rows, wall, nl,
+                   msm=t_msm, aff=t_aff)
+            del cand
+
+            ok, wall, nl = call(f"Schnorr verify_batch, {curve.name}, {rows} true signatures",
+                                lambda: scheme.verify_batch(params, pks, msgs, sigs), [kname])
+            require(ok == [True] * rows, f"every true signature verifies on {curve.name}")
+            s_bits = bits_of([x.prover_response for x in sigs])
+            e_bits = bits_of([x.verifier_challenge for x in sigs])
+            pks_dev = points(pks)
+            sg, t_msm = step(lambda: mod.fixed_base_mul(curve, G, s_bits))
+            epk, t_win = step(lambda: mod.scalar_mul_bits_windowed(curve, pks_dev, e_bits))
+            _, t_aff = step(lambda: mod.unpack_affine(curve, mod.add(curve, sg, epk)))
+            record("Schnorr verify_batch", rows, wall, nl, msm=t_msm, win=t_win, aff=t_aff)
+            del sg, epk
+            altered = [bytes([m[0] ^ 1]) + m[1:] if i % 16 == 0 else m for i, m in enumerate(msgs)]
+            bad, wall, nl = call(f"Schnorr verify_batch, {curve.name}, every 16th message altered",
+                                 lambda: scheme.verify_batch(params, pks, altered, sigs), [kname])
+            require(bad == [i % 16 != 0 for i in range(rows)], f"exactly the altered messages fail on {curve.name}")
+            require(all(bad[i] == scheme.verify(params, pks[i], altered[i], sigs[i]) for i in sample),
+                    f"{SAMPLE} verify_batch rows == host verify on {curve.name}")
+            summary.append((f"Schnorr verify_batch (every 16th altered), {curve.name}", rows, wall,
+                            None, None, None, nl))
+
+            eg = ElGamal(curve)
+            eparams = eg.setup(srng)
+            epk, esk = eg.keygen(eparams, srng)
+            emsgs = list(pks)  # random points of the group
+            if curve.coords == 3:
+                emsgs[0] = None  # the SW identity as a message
+            rs = [eg.rand_randomness(srng) for _ in range(rows)]
+            cts, wall, nl = call(f"ElGamal encrypt_batch, {curve.name}, {rows} messages (r pk fixed-base; "
+                                 f"its table built on the host)",
+                                 lambda: eg.encrypt_batch(eparams, epk, emsgs, rs), [kname])
+            require(all(cts[i] == eg.encrypt(eparams, epk, emsgs[i], rs[i]) for i in sample),
+                    f"{SAMPLE} encrypt_batch rows == host encrypt on {curve.name}")
+            rbits = bits_of(rs)
+            c1, t1 = step(lambda: mod.fixed_base_mul(curve, eparams.generator, rbits))
+            rpk, t2 = step(lambda: mod.fixed_base_mul(curve, epk, rbits))
+            m_dev = points(emsgs)
+            _, t_aff = step(lambda: mod.unpack_affine(curve, torch.stack([c1, mod.add(curve, m_dev, rpk)], dim=1)))
+            record("ElGamal encrypt_batch", rows, wall, nl, msm=t1 + t2, aff=t_aff)
+            del c1, rpk, m_dev
+            n = ELGAMAL_SMALL
+            small, wall, nl = call(f"ElGamal encrypt_batch, {curve.name}, {n} messages (r pk windowed)",
+                                   lambda: eg.encrypt_batch(eparams, epk, emsgs[:n], rs[:n]), [kname])
+            require(small == cts[:n], f"the windowed route == the fixed-base route on {curve.name}")
+            c1, t_msm = step(lambda: mod.fixed_base_mul(curve, eparams.generator, rbits[:n]))
+            rpk, t_win = step(lambda: mod.scalar_mul_bits_windowed(curve, points(tuple(epk)), rbits[:n]))
+            _, t_aff = step(lambda: mod.unpack_affine(curve, torch.stack([c1, mod.add(curve, points(emsgs[:n]), rpk)],
+                                                                         dim=1)))
+            record("ElGamal encrypt_batch", n, wall, nl, msm=t_msm, win=t_win, aff=t_aff)
+            dec, wall, nl = call(f"ElGamal decrypt_batch, {curve.name}, {rows + n} ciphertexts (windowed only, as "
+                                 f"in the JAX package: no kernel)",
+                                 lambda: eg.decrypt_batch(eparams, esk, cts + small), [])
+            require(nl == 0, f"decrypt_batch launches no kernel on {curve.name}")
+            require(dec == emsgs + emsgs[:n], f"decrypt_batch round trips every message on {curve.name}")
+            require(all(dec[i] == eg.decrypt(eparams, esk, cts[i]) for i in sample),
+                    f"{SAMPLE} decrypt_batch rows == host decrypt on {curve.name}")
+            c1s, c2s = points([c[0] for c in cts]), points([c[1] for c in cts])
+            sk_bits = bits_of([esk] * rows)
+            sc, t_win = step(lambda: mod.scalar_mul_bits_windowed(curve, c1s, sk_bits))
+            _, t_aff = step(lambda: mod.unpack_affine(curve, mod.add(curve, c2s, mod.neg(curve, sc))))
+            record(f"ElGamal decrypt_batch (the split on the first {rows} rows)", rows + n, wall, nl, win=t_win,
+                   aff=t_aff)
+            del c1s, c2s, sc
+
+            # the kernel at the fixed-base shape: the first signing pass of 2^14 messages
+            table = torch.from_numpy(mod.fixed_base_grouped_table(curve, G, curve.scalar.nbits)).cuda()
+            fbits = torch.randint(0, 2, (FIXED_BASE_ROWS, curve.scalar.nbits), dtype=torch.uint8, device="cuda",
+                                  generator=gen)
+            table, idx = curve_fast.grouped_operands(table, fbits, 3)
+            ms = median_ms(lambda: kern.grouped_msm(curve, table, idx), reps=10)
+            sel = torch.randperm(idx.shape[0], device="cuda", generator=gen)[:CHECK_ROWS]
+            got = kern.grouped_msm(curve, table, idx)[sel]
+            want = kern.grouped_msm_plain(curve, table, idx[sel].contiguous())
+            errs[kname] = max(errs[kname], max_abs_err(got, want))
+            require(torch.equal(got, want), f"{kname} == plain on {CHECK_ROWS} rows of the fixed-base batch")
+            plain = median_ms(lambda: kern.grouped_msm_plain(curve, table, idx[:CHECK_ROWS].contiguous()), reps=1,
+                              warmup=0)
+            b_ms, b_by = bound_ms(*msm_bound(curve, table, idx))
+            log(f"  {kname} at the fixed-base shape ({curve.name}, {idx.shape[0]} rows x {table.shape[0]} groups): "
+                f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x; plain {plain:.2f} ms at "
+                f"{CHECK_ROWS} rows; {CHECK_ROWS} random rows equal to the plain version")
+            del kbits, fbits, idx, table
+
+        log("  phase 7 calls (wall; steps run again alone; launches of the curve's kernel):")
+        for path, n, wall, msm, win, aff, nl in summary:
+            steps = "" if msm is None else f"; MSM {msm:.3f} s, windowed {win:.3f} s, affine {aff:.3f} s"
+            log(f"    {path} ({n} rows): {wall:.3f} s{steps}; {nl} launches")
+        log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     with Phase("phase 6: times"):
         half = LEAVES // 2
         # one whole level of 2^19 compressions, as the trees launch them
@@ -618,11 +827,6 @@ def main() -> int:
             small = x[:CHECK_ROWS].contiguous()
             plain_times[name] = median_ms(lambda: plain(small), reps=plain_reps, warmup=1 if plain_reps > 1 else 0)
 
-        def msm_bound(curve, table, idx):
-            W = curve.base.num_words
-            nbytes = idx.numel() * 4 + idx.shape[0] * curve.coords * W * 4 + table.numel() * 4
-            return nbytes, idx.numel() * msm_products(curve) * 2 * (4 * W * W + W)
-
         image_bytes = cfg.schedule_tables(pstates.device)[1].numel() * 4
         work = {
             "poseidon_permute": (2 * pstates.numel() * 4 + image_bytes, half * poseidon_ops(cfg)),
@@ -646,7 +850,7 @@ def main() -> int:
         for name in calls:
             nbytes, nops = work[name]
             tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_OPS_PER_S * 1e3
-            b_ms, b_by = (tb, "bytes") if tb >= to else (to, "operations")
+            b_ms, b_by = bound_ms(nbytes, nops)
             log(f"  {name}: {times[name]:.4f} ms at {calls[name][2].shape[0]} rows, bound {b_ms:.4f} ms ({b_by}; "
                 f"bytes alone {tb:.4f} ms, operations alone {to:.4f} ms), "
                 f"plain {plain_times[name]:.2f} ms at {CHECK_ROWS} rows"

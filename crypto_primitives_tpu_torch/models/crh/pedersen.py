@@ -15,7 +15,8 @@ Two tiers:
     means CUDA): the bits go through one grouped subset-sum MSM over the
     flattened window table (kernel ``msm_te`` or ``msm_sw`` on the card) and
     the sums are made affine by a Fermat inversion in plain PyTorch.  Digests
-    are ``(..., 2, W)`` Montgomery words (x, y).
+    are ``(..., 2, W)`` Montgomery words (x, y).  ``evaluate_batch_many``
+    runs N such MSMs, with their own parameters, in one call.
 """
 
 from __future__ import annotations
@@ -128,6 +129,19 @@ class PedersenCRH:
         self._check_length(inputs.shape[-1])
         bits = bytes_to_bits_batch(inputs)
         return fast_mod(self.curve).conditional_sum_grouped_auto(self.curve, params, bits, GROUP_W)
+
+    def evaluate_batch_many(self, params_list, inputs_list, device=None) -> List[torch.Tensor]:
+        """N independent evaluations (their own parameters and batch shapes)
+        -> the N sums of :meth:`evaluate_batch_projective`, run by
+        ``msm_many``: the twin of the JAX package's
+        ``evaluate_batch_rns_many``."""
+        dev = resolve_device(device)
+        bits_list = []
+        for inputs in inputs_list:
+            inputs = torch.as_tensor(inputs, dtype=torch.uint8, device=dev)
+            self._check_length(inputs.shape[-1])
+            bits_list.append(bytes_to_bits_batch(inputs))
+        return fast_mod(self.curve).msm_many(self.curve, params_list, bits_list, GROUP_W)
 
     def evaluate_batch(self, params: PedersenParameters, inputs, device=None) -> torch.Tensor:
         """inputs (..., nbytes) uint8 -> affine digests (..., 2, W) Montgomery."""

@@ -14,7 +14,10 @@ from ``ark-ec`` for twisted-Edwards groups).
     non-square, so there are no branches.  The 11 products of one addition
     run as 3 stacked Montgomery products, as in the JAX package.  Every
     coordinate is fully reduced, so results agree word for word with any
-    other computation that takes the same steps.
+    other computation that takes the same steps.  Doubling, double-and-add
+    scalar multiplication, conditional sums and projective equality are
+    built on that one law; the ``dev_*`` methods give the curve models one
+    surface.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from crypto_primitives_tpu_torch.device import resolve_device
 from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 
@@ -198,6 +202,28 @@ class TECurveSpec:
             self._tensors[key] = c
         return c
 
+    # ------------- generic batched ops (the JAX package's device shims) -----
+    # The tensors' device is the caller's; ``dev_identity`` takes one, None
+    # meaning CUDA.
+
+    def dev_identity(self, shape=(), device=None):
+        return identity(self, shape, resolve_device(device))
+
+    def dev_conditional_sum(self, table, bits):
+        return te_conditional_sum(self, table, bits)
+
+    def dev_to_affine(self, pts):
+        return te_to_affine(self, pts)
+
+    def dev_add(self, p1, p2):
+        return te_add(self, p1, p2)
+
+    def dev_neg(self, pts):
+        return te_neg(self, pts)
+
+    def dev_scalar_mul_bits(self, base_pts, bits):
+        return te_scalar_mul_bits(self, base_pts, bits)
+
 
 def affine_to_uncompressed_bytes(curve, aff: torch.Tensor) -> torch.Tensor:
     """(..., 2, W) Montgomery affine -> (..., 2 * bigint_bytes) uint8: x || y
@@ -284,21 +310,56 @@ def te_to_affine(curve: TECurveSpec, pts: torch.Tensor) -> torch.Tensor:
     return ff.from_digits(te_to_affine_digits(curve, ff.to_digits(pts)))
 
 
+def te_double(curve: TECurveSpec, p1: torch.Tensor) -> torch.Tensor:
+    return te_add(curve, p1, p1)
+
+
+def scalar_mul_bits_digits(add_digits, ident: torch.Tensor, base: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """Double-and-add on digit points, least significant bit first: at each
+    bit the sum acc + base is selected in where the bit is set, then base is
+    doubled (no branch on the bits).  base (..., C, L), bits (..., N)."""
+    acc = ident.expand(bits.shape[:-1] + ident.shape)
+    for j in range(bits.shape[-1]):
+        acc = torch.where((bits[..., j] != 0)[..., None, None], add_digits(acc, base), acc)
+        base = add_digits(base, base)
+    return acc
+
+
+def te_scalar_mul_bits(curve: TECurveSpec, base_pt: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """base_pt (..., 4, W) times scalars given as bits (..., N), least
+    significant first, by :func:`scalar_mul_bits_digits`."""
+    return ff.from_digits(scalar_mul_bits_digits(lambda a, b: te_add_digits(curve, a, b),
+                                                 curve._consts(base_pt.device)["identity"],
+                                                 ff.to_digits(base_pt), bits))
+
+
+def conditional_sum_digits(add_digits, ident: torch.Tensor, table: torch.Tensor, bits: torch.Tensor,
+                           chunk: int) -> torch.Tensor:
+    """sum_j bits[..., j] * table[j] on digit points: a per-bit select
+    against the identity, then a tree sum, ``chunk`` table entries at a
+    time.  table (N, C, L), bits (..., N); returns (..., C, L)."""
+    batch = tuple(bits.shape[:-1])
+    acc = ident.expand(batch + ident.shape)
+    for start in range(0, table.shape[0], chunk):
+        tb = table[start:start + chunk]
+        sel = torch.where((bits[..., start:start + chunk] != 0)[..., None, None], tb.expand(batch + tb.shape), ident)
+        acc = add_digits(acc, tree_sum_digits(add_digits, ident, sel))
+    return acc
+
+
 def te_conditional_sum(curve: TECurveSpec, table: torch.Tensor, bits: torch.Tensor,
                        chunk: int = 256) -> torch.Tensor:
-    """sum_j bits[..., j] * table[j]: a per-bit select against the identity,
-    then a tree sum, ``chunk`` table entries at a time.  table (N, 4, W),
-    bits (..., N); returns (..., 4, W)."""
-    batch = tuple(bits.shape[:-1])
-    ident = curve._consts(table.device)["identity"]
-    tab = ff.to_digits(table)
-    acc = ident.expand(batch + ident.shape)
+    """sum_j bits[..., j] * table[j] (:func:`conditional_sum_digits`).
+    table (N, 4, W), bits (..., N); returns (..., 4, W)."""
+    return ff.from_digits(conditional_sum_digits(lambda a, b: te_add_digits(curve, a, b),
+                                                 curve._consts(table.device)["identity"],
+                                                 ff.to_digits(table), bits, chunk))
 
-    def add(a, b):
-        return te_add_digits(curve, a, b)
 
-    for start in range(0, table.shape[0], chunk):
-        tb = tab[start:start + chunk]
-        sel = te_select(bits[..., start:start + chunk] != 0, tb.expand(batch + tb.shape), ident)
-        acc = add(acc, tree_sum_digits(add, ident, sel))
-    return ff.from_digits(acc)
+def te_eq(curve: TECurveSpec, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Projective equality of (..., 4, W) points: X1 Z2 == X2 Z1 and
+    Y1 Z2 == Y2 Z1."""
+    q = curve.base
+    lhs = ff.mont_mul(q, p1[..., 0:2, :], p2[..., 3:4, :])
+    rhs = ff.mont_mul(q, p2[..., 0:2, :], p1[..., 3:4, :])
+    return (lhs == rhs).all(-1).all(-1)

@@ -13,6 +13,9 @@ Twin of ``crypto_primitives_tpu/ops/curve_sw.py``.
     same steps.  Its 12 variable products run as two stacked Montgomery
     products of 6, plus one stacked product by the constants (a, 3b, a^2),
     with a*(t0 - a*t2) flattened to a*t0 - a^2*t2, as in the JAX package.
+    Doubling, double-and-add scalar multiplication, the per-bit conditional
+    sum and projective equality (infinity on either side included) are
+    built on that one law, with the ``dev_*`` methods of the TE tier.
 """
 
 from __future__ import annotations
@@ -22,8 +25,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from crypto_primitives_tpu_torch.device import resolve_device
 from crypto_primitives_tpu_torch.ops import field as ff
-from crypto_primitives_tpu_torch.ops.curve import tree_sum_digits, tonelli
+from crypto_primitives_tpu_torch.ops.curve import (
+    conditional_sum_digits,
+    scalar_mul_bits_digits,
+    tonelli,
+    tree_sum_digits,
+)
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 
 
@@ -223,6 +232,28 @@ class SWCurveSpec:
             self._tensors[key] = c
         return c
 
+    # ------------- generic batched ops (the JAX package's device shims) -----
+    # The tensors' device is the caller's; ``dev_identity`` takes one, None
+    # meaning CUDA.
+
+    def dev_identity(self, shape=(), device=None):
+        return identity(self, shape, resolve_device(device))
+
+    def dev_conditional_sum(self, table, bits):
+        return sw_conditional_sum(self, table, bits)
+
+    def dev_to_affine(self, pts):
+        return sw_to_affine(self, pts)
+
+    def dev_add(self, p1, p2):
+        return sw_add(self, p1, p2)
+
+    def dev_neg(self, pts):
+        return sw_neg(self, pts)
+
+    def dev_scalar_mul_bits(self, base_pts, bits):
+        return sw_scalar_mul_bits(self, base_pts, bits)
+
 
 # ----------------------------------------------------------------------
 # Batched tier on 16-bit digits (..., 3, L); the public functions take and
@@ -304,3 +335,36 @@ def sw_to_affine(curve: SWCurveSpec, pts: torch.Tensor) -> torch.Tensor:
     """(..., 3, W) projective -> (..., 2, W) affine Montgomery words; the
     identity maps to (0, 0)."""
     return ff.from_digits(sw_to_affine_digits(curve, ff.to_digits(pts)))
+
+
+def sw_double(curve: SWCurveSpec, p1: torch.Tensor) -> torch.Tensor:
+    return sw_add(curve, p1, p1)
+
+
+def sw_scalar_mul_bits(curve: SWCurveSpec, base_pt: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """base_pt (..., 3, W) times scalars given as bits (..., N), least
+    significant first (``curve.scalar_mul_bits_digits``)."""
+    ident = curve._consts(base_pt.device)["identity"]
+    return ff.from_digits(scalar_mul_bits_digits(lambda a, b: sw_add_digits(curve, a, b), ident,
+                                                 ff.to_digits(base_pt), bits))
+
+
+def sw_conditional_sum(curve: SWCurveSpec, table: torch.Tensor, bits: torch.Tensor,
+                       chunk: int = 256) -> torch.Tensor:
+    """sum_j bits[..., j] * table[j] (``curve.conditional_sum_digits``).
+    table (N, 3, W), bits (..., N); returns (..., 3, W)."""
+    ident = curve._consts(table.device)["identity"]
+    return ff.from_digits(conditional_sum_digits(lambda a, b: sw_add_digits(curve, a, b), ident,
+                                                 ff.to_digits(table), bits, chunk))
+
+
+def sw_eq(curve: SWCurveSpec, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Projective equality of (..., 3, W) points: X1 Z2 == X2 Z1 and
+    Y1 Z2 == Y2 Z1 when neither is infinity; two infinities (Z = 0) are
+    equal, and infinity equals no finite point."""
+    q = curve.base
+    lhs = ff.mont_mul(q, p1[..., 0:2, :], p2[..., 2:3, :])
+    rhs = ff.mont_mul(q, p2[..., 0:2, :], p1[..., 2:3, :])
+    cross = (lhs == rhs).all(-1).all(-1)
+    z1, z2 = ff.is_zero(q, p1[..., 2, :]), ff.is_zero(q, p2[..., 2, :])
+    return (z1 & z2) | (cross & ~(z1 ^ z2))

@@ -17,9 +17,11 @@ patterns: PyTorch on the CPU has no uint32 add, shift or compare.
 Two tiers:
   * host tier: Python-int helpers on :class:`FieldSpec` (exact), with the same
     constants as the JAX ``FieldSpec`` where the two R agree;
-  * batched tier: ``add``, ``sub``, ``neg``, ``mont_mul``, ``mul_small``,
-    ``pow_const``, ``inv``, ``to_mont``, ``from_mont``, ``eq``, ``is_zero``
-    and ``select`` on ``(..., W)`` int32 tensors, on any device.  These are
+  * batched tier: ``zeros``, ``ones``, ``add``, ``sub``, ``neg``,
+    ``mont_mul``, ``mont_sqr``, ``mul_small``, ``pow_const``,
+    ``pow_dynamic``, ``inv``, ``batch_inv``, ``to_mont``, ``from_mont``,
+    ``eq``, ``is_zero`` and ``select`` on ``(..., W)`` int32 tensors, on any
+    device.  These are
     the plain versions: they compute on 2W 16-bit digits held in int64, so
     that schoolbook column sums never overflow.  The CUDA kernels do the same
     arithmetic on 32-bit words (``csrc/field.cuh``).  Callers that chain many
@@ -183,6 +185,7 @@ class FieldSpec:
                 "p_ext": digits(self.p, L + 1),
                 "r2": digits(self.R2_mod_p),
                 "one_std": digits(1),
+                "one": digits(self.R_mod_p),  # 1 in Montgomery form
                 # column of each schoolbook partial product a[i] * b[j]
                 "diag": torch.tensor((i + j).reshape(-1), dtype=torch.int64, device=device),
             }
@@ -328,6 +331,12 @@ def zeros(spec: FieldSpec, shape=(), device=None) -> torch.Tensor:
     return torch.zeros(tuple(shape) + (spec.num_words,), dtype=torch.int32, device=device)
 
 
+def ones(spec: FieldSpec, shape=(), device=None) -> torch.Tensor:
+    """1 in Montgomery form (R mod p), shape (..., W)."""
+    one = torch.as_tensor(spec.pack([1])[0], device=device)
+    return one.expand(tuple(shape) + one.shape).clone()
+
+
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Modular addition (the same in Montgomery and standard form)."""
     return from_digits(add_digits(spec, to_digits(a), to_digits(b)))
@@ -340,6 +349,10 @@ def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a * b * R^-1 mod p."""
     return from_digits(mont_mul_digits(spec, to_digits(a), to_digits(b)))
+
+
+def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(spec, a, a)
 
 
 def pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
@@ -381,6 +394,43 @@ def mul_small(spec: FieldSpec, a: torch.Tensor, c: int) -> torch.Tensor:
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Fermat inverse a^(p-2), as the JAX package computes it; 0 maps to 0."""
     return pow_const(spec, a, spec.p - 2)
+
+
+def pow_dynamic(spec: FieldSpec, base: torch.Tensor, exp_words: torch.Tensor) -> torch.Tensor:
+    """base^e with a per-element exponent given as standard-form words
+    ``(..., W)`` (not Montgomery form): the least-significant-first ladder
+    over all 32 W exponent bits, a square every bit and a product selected in
+    where the bit is set, as the JAX package runs it over its 16 L bits."""
+    e = exp_words.to(torch.int64) & WORD_MASK
+    b = to_digits(base)
+    shape = torch.broadcast_shapes(b.shape[:-1], e.shape[:-1])
+    one = spec._consts(b.device)["one"]
+    acc = one.expand(shape + one.shape)
+    for k in range(WORD_BITS * spec.num_words):
+        bit = ((e[..., k // WORD_BITS] >> (k % WORD_BITS)) & 1).bool()
+        acc = torch.where(bit.unsqueeze(-1), mont_mul_digits(spec, acc, b), acc)
+        b = mont_mul_digits(spec, b, b)
+    return from_digits(acc)
+
+
+def batch_inv(spec: FieldSpec, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Montgomery's batch inversion along ``axis``: the running products,
+    one Fermat inverse of their total, then 2 products an element on the way
+    back, in the JAX package's order.  As there, a zero anywhere in the batch
+    makes the total 0, whose inverse is 0, so every output is 0."""
+    d = to_digits(a).movedim(axis, 0)
+    one = spec._consts(d.device)["one"]
+    run = one.expand(d.shape[1:])
+    prefixes = []
+    for x in d:
+        prefixes.append(run)  # the product of the elements before x
+        run = mont_mul_digits(spec, run, x)
+    carry = pow_const_digits(spec, run, spec.p - 2)
+    outs = [None] * d.shape[0]
+    for i in reversed(range(d.shape[0])):
+        outs[i] = mont_mul_digits(spec, carry, prefixes[i])
+        carry = mont_mul_digits(spec, carry, d[i])
+    return from_digits(torch.stack(outs).movedim(0, axis)) if outs else a.clone()
 
 
 def eq(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the Poseidon permutation, SHA-256 (both entry points), both grouped MSMs on
-every curve they are built for (``msm_sw`` also at every row split it takes),
-and the field arithmetic they share (through the test-only field probe).
+every curve they are built for (``msm_sw`` also at every row split it takes;
+both at the fixed-base shapes of 20 and 84-86 groups, and under
+``msm_many``), and the field arithmetic they share (through the test-only
+field probe); the windowed product and the Schnorr and ElGamal batch entry
+points on CUDA tensors against the same on CPU tensors.
 
 Every test here needs a CUDA device and skips without one.  On a machine with
 a card (and without JAX, which tests/conftest.py imports):
@@ -236,3 +239,99 @@ def test_field_probe_matches_plain_on_edge_values(cuda, field, op):
     b = torch.from_numpy(spec.pack([y for _, y in pairs], mont=False)).to(cuda)
     got = field_probe.field_ops(spec, op, a, b, iters=3)
     assert torch.equal(got, field_probe.field_ops_plain(spec, op, a, b, iters=3))
+
+
+@pytest.mark.parametrize("name", ["JUBJUB", "ED_ON_BLS12_377", "BLS12_381_G1", "SECP256R1"])
+@pytest.mark.parametrize("nbits", [60, 252, 255, 256])
+def test_fixed_base_mul_kernel_matches_plain(cuda, name, nbits):
+    """The fixed-base product on the card (one launch of msm_te or msm_sw
+    over the doubling-power table) equals its plain version word for word,
+    at G = 20 (below msm_te's 32-group index tile), 84, 85 and 86 groups of 3
+    (G mod 3 = 0, 1, 2: msm_sw's k = 3 ranges of unequal length)."""
+    from crypto_primitives_tpu_torch.ops import curves_known, msm_kernel, msm_sw_kernel
+    from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+
+    curve = getattr(curves_known, name)
+    mod, kern = fast_mod(curve), (msm_kernel if curve.coords == 4 else msm_sw_kernel)
+    g = torch.Generator(device="cuda").manual_seed(nbits)
+    bits = torch.randint(0, 2, (1000, nbits), dtype=torch.uint8, device=cuda, generator=g)
+    bits[0], bits[1] = 0, 1
+    before = kern.launches
+    got = mod.fixed_base_mul(curve, curve.generator, bits)
+    assert kern.launches == before + 1
+    assert torch.equal(got.cpu(), mod.fixed_base_mul(curve, curve.generator, bits.cpu()))
+
+
+def test_msm_many_on_the_card_matches_single_calls(cuda):
+    import random
+
+    from crypto_primitives_tpu_torch.models.crh import PedersenCRH, Window
+    from crypto_primitives_tpu_torch.ops import curves_known
+
+    for curve in (curves_known.JUBJUB, curves_known.BLS12_381_G1):
+        crh = PedersenCRH(curve, Window(6, 40))
+        params = [crh.setup(random.Random(s)) for s in (1, 2)]
+        g = torch.Generator(device="cuda").manual_seed(3)
+        inputs = [torch.randint(0, 256, (rows, 30), dtype=torch.uint8, device=cuda, generator=g) for rows in (500, 70)]
+        many = crh.evaluate_batch_many(params, inputs, device=cuda)
+        for out, p, x in zip(many, params, inputs):
+            assert torch.equal(out, crh.evaluate_batch_projective(p, x, device=cuda))
+            assert torch.equal(out.cpu(), crh.evaluate_batch_projective(p, x.cpu(), device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["JUBJUB", "BLS12_381_G1", "SECP256R1"])
+def test_windowed_mul_on_cuda_tensors_matches_cpu(cuda, name):
+    import random
+
+    from crypto_primitives_tpu_torch.ops import curves_known
+    from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+
+    curve = getattr(curves_known, name)
+    mod = fast_mod(curve)
+    rng = random.Random(4)
+    base = torch.from_numpy(mod.pack_points(curve, [curve.rand_point(rng) for _ in range(300)]))
+    bits = torch.from_numpy(mod.scalars_to_bits(curve, [rng.randrange(curve.scalar.p) for _ in range(300)]))
+    got = mod.scalar_mul_bits_windowed(curve, base.to(cuda), bits.to(cuda))
+    assert torch.equal(got.cpu(), mod.scalar_mul_bits_windowed(curve, base, bits))
+
+
+@pytest.mark.parametrize("name", ["ED_ON_BLS12_377", "BLS12_381_G1"])
+def test_schnorr_and_elgamal_on_the_card_match_cpu(cuda, name):
+    """The batch entry points give the same results on the card as on the CPU
+    from the same seed, and launch their kernels (decrypt_batch none)."""
+    import random
+
+    from crypto_primitives_tpu_torch.models.encryption import ElGamal
+    from crypto_primitives_tpu_torch.models.signature import Schnorr
+    from crypto_primitives_tpu_torch.ops import curves_known, msm_kernel, msm_sw_kernel
+
+    curve = getattr(curves_known, name)
+    kern = msm_kernel if curve.coords == 4 else msm_sw_kernel
+    msgs = [bytes([i]) * 5 for i in range(40)]
+
+    def run(device):
+        rng = random.Random(5)
+        s = Schnorr(curve)
+        params = s.setup(rng)
+        keys = s.keygen_batch(params, rng, 40, device=device)
+        sigs = s.sign_batch(params, [sk for _, sk in keys], msgs, rng, device=device)
+        pks = [pk for pk, _ in keys]
+        ok = s.verify_batch(params, pks, msgs[:39] + [b"x"], sigs, device=device)
+        e = ElGamal(curve)
+        eparams = e.setup(rng)
+        pk, sk = e.keygen(eparams, rng)
+        pts = [curve.rand_point(rng) for _ in range(40)]
+        rs = [e.rand_randomness(rng) for _ in range(40)]
+        cts = e.encrypt_batch(eparams, pk, pts, rs, device=device) + e.encrypt_batch(eparams, pk, pts[:5], rs[:5],
+                                                                                    device=device)
+        before = kern.launches
+        dec = e.decrypt_batch(eparams, sk, cts, device=device)
+        assert kern.launches == before
+        assert dec == pts + pts[:5]
+        return keys, [(x.prover_response, x.verifier_challenge) for x in sigs], ok, cts
+
+    before = kern.launches
+    on_card = run(cuda)
+    assert kern.launches >= before + 5
+    assert on_card == run("cpu")
+    assert on_card[2] == [True] * 39 + [False]

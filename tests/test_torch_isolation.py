@@ -74,6 +74,8 @@ def test_entry_points_without_device_need_cuda():
         poseidon_device_tree,
         sha256_device_tree,
     )
+    from crypto_primitives_tpu_torch.models.encryption import ElGamal, ElGamalParameters
+    from crypto_primitives_tpu_torch.models.signature import Schnorr, SchnorrParameters, SchnorrSignature
     from crypto_primitives_tpu_torch.ops.curves_known import BLS12_381_G1, JUBJUB
     from crypto_primitives_tpu_torch.models.sponge import PoseidonSpongeBatch, get_default_poseidon_parameters
     from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FR as FR
@@ -95,6 +97,13 @@ def test_entry_points_without_device_need_cuda():
                                    torch.zeros((2, 2, 8), dtype=torch.int32)),
         lambda: com.commit_batch(None, leaves[:, :4], np.zeros((4, 255), dtype=np.uint8)),
         lambda: pedersen_device_tree(JUBJUB, None, None, Window(4, 16), Window(4, 256), leaves[:, :8]),
+        lambda: ped.evaluate_batch_many([None], [leaves[:, :4]]),
+        lambda: Schnorr(JUBJUB).keygen_batch(SchnorrParameters(JUBJUB.generator, bytes(32)), None, 2),
+        lambda: Schnorr(BLS12_381_G1).sign_batch(None, [1], [b"m"], None),
+        lambda: Schnorr(JUBJUB).verify_batch(None, [JUBJUB.generator], [b"m"], [SchnorrSignature(1, 1)]),
+        lambda: ElGamal(JUBJUB).encrypt_batch(ElGamalParameters(JUBJUB.generator), JUBJUB.generator,
+                                              [JUBJUB.generator], [1]),
+        lambda: ElGamal(BLS12_381_G1).decrypt_batch(None, 1, [(None, None)]),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
