@@ -17,7 +17,8 @@ Phases (each prints a flushed line before and after, with its seconds):
      padding's edges, with 16-byte and byte loads), and the shared field
      arithmetic (csrc/field_probe.cu) against the plain field tier on edge
      values at W = 8 and W = 12; both MSM kernels at the fixed-base shapes,
-     20 (msm_te) and 84, 85 and 86 groups of doubling powers;
+     20 (msm_te) and 84, 85 and 86 groups of doubling powers; msm_te on
+     Bowe-Hopwood's signed-digit table at 20, 341 and 342 groups;
   4. the hashing paths at full size: a SHA-256 and a Poseidon Merkle tree
      over 2^20 leaves each, built, proved and verified (the SHA-256 build
      launches its kernel once per hashed level);
@@ -36,12 +37,24 @@ Phases (each prints a flushed line before and after, with its seconds):
      alone); msm_te at 2^16 rows x 84 groups and msm_sw at 2^16 x 85 (the
      fixed-base shape of 2^14 messages' signing pass) timed beside their
      bounds;
+  8. transcripts, protocols and the rest of the Pedersen family (run after
+     phase 7, before phase 6): the Bowe-Hopwood CRH on ed-on-bls12-377 at
+     window 63 x 6 over 2^16 128-byte inputs, the injective-map CRH and
+     commitment compressors at phase 5's window and inputs (their outputs
+     equal the x-coordinates of phase 5's), the fold argument (B = 8192,
+     R = 8), the sumcheck prover (B = 4096, m = 10) eagerly and through its
+     CUDA graph (equal on every instance), and the IPA folding argument on
+     JubJub (n = 4, B = 1024); sampled instances held against the host
+     oracles and verifiers, a forged IPA scalar rejected; each call's wall
+     time and its steps (MSM, windowed, affine; permutation and field) and
+     launches;
   6. times: each kernel at its path's shape (its output there held on 4096
      random rows against the plain version), the plain version's time, and
      the bound the card sets; SHA-256's byte entry at 2^19 messages of 64
      bytes (the tree's inner levels, the shape in the kernels line) and of
      80 bytes (its first inner level), and its word entry at 2^19 two-block
-     messages.
+     messages; poseidon_permute at the transcripts' 8192, 4096 and 1024
+     states.
 Every path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel did not launch fails (decrypt_batch
 runs none, as in the JAX package: it is required to launch none).  It needs CUDA and
@@ -77,6 +90,17 @@ FIXED_BASE_ROWS = 1 << 16  # msm_te and msm_sw timed at the fixed-base shape
 SIG_MSG_BYTES = 128
 ELGAMAL_SMALL = 16  # below 32 messages, ElGamal's r pk takes the windowed route
 HOST_TOP = 8  # the Pedersen tree's top 8 levels are recomputed on the host
+# phase 8, the JAX package's bench shapes: benches/crh.py:40 (Bowe-Hopwood
+# window 63 x 6), benches/fiat_shamir.py:33-34, benches/sumcheck.py:28-29,
+# benches/ipa_fold.py:28-29
+BH_WINDOW = (63, 6)
+BH_ROWS = 1 << 16
+FOLD_B, FOLD_R = 8192, 8
+SUMCHECK_B, SUMCHECK_M = 4096, 10
+# IPA cut from the bench's n = 8 to n = 4: at n = 8 phase 8 took 83-103 s on an H100,
+# over the 90 s it may take
+IPA_B, IPA_N = 1024, 4
+SAMPLE_PROTOCOL = 16  # sumcheck and IPA instances held against the host oracles
 
 # Pinned BLS12-381 Fr sponge output: absorb [0, 1, 2], squeeze 3
 # (tests/test_poseidon.py:121-129, the reference's src/sponge/poseidon/mod.rs:381-404).
@@ -268,7 +292,9 @@ def main() -> int:
         log("chip_smoke: no CUDA device; nothing to run")
         return 1
 
-    from crypto_primitives_tpu_torch.models.commitment import PedersenCommitment
+    from crypto_primitives_tpu_torch.models.commitment import PedersenCommitment, PedersenCommitmentCompressor
+    from crypto_primitives_tpu_torch.models.crh.bowe_hopwood import BoweHopwoodCRH
+    from crypto_primitives_tpu_torch.models.crh.injective_map import PedersenCRHCompressor
     from crypto_primitives_tpu_torch.models.crh.pedersen import bytes_to_bits_batch
     from crypto_primitives_tpu_torch.models.crh import (
         PedersenCRH,
@@ -465,6 +491,23 @@ def main() -> int:
                 groups.append(table.shape[0])
             log(f"  {name} {curve.name} fixed-base tables: {CHECK_ROWS} rows x {groups} groups equal")
 
+        # Bowe-Hopwood's signed-digit table (negated points, identity rows
+        # past n_real): 342 groups (128-byte inputs), 341 and 20 (partial
+        # 32-group index tiles)
+        bh = BoweHopwoodCRH(ED_ON_BLS12_377, Window(*BH_WINDOW))
+        bh_params = bh.setup(random.Random(SEED + 9))
+        for groups in (20, 341, 342):
+            table = bh_params.device_signed_table(groups, torch.device("cuda"))
+            bits = torch.randint(0, 2, (CHECK_ROWS, 3 * groups), dtype=torch.uint8, device="cuda", generator=gen)
+            bits[0], bits[1] = 0, 1
+            table, idx = curve_fast.grouped_operands(table, bits, 3)
+            got = msm_kernel.grouped_msm(ED_ON_BLS12_377, table, idx)
+            want = msm_kernel.grouped_msm_plain(ED_ON_BLS12_377, table, idx)
+            torch.cuda.synchronize()
+            errs["msm_te"] = max(errs["msm_te"], max_abs_err(got, want))
+            require(torch.equal(got, want), f"msm_te == plain on the signed-combos table, {groups} groups")
+        log(f"  msm_te ed_on_bls12_377 Bowe-Hopwood signed-combos table: {CHECK_ROWS} rows x 20, 341, 342 groups equal")
+
     launches = dict.fromkeys(KERNELS, 0)
     with Phase("phase 4: hashing paths at 2^20 leaves"):
         torch.cuda.reset_peak_memory_stats()
@@ -569,6 +612,8 @@ def main() -> int:
             table, idx = curve_fast.grouped_operands(mod.device_table(params, 3, inputs.device),
                                                      bytes_to_bits_batch(inputs), 3)
             main_shapes[kname] = (curve, table, idx)
+            if curve is ED_ON_BLS12_377:  # phase 8's compressors run on the same inputs
+                pedersen_te = (window, params, cparams, inputs, rbits, digests[:, 0].clone(), comms[:, 0].clone())
             del acc, digests, comms
 
         # the Pedersen Merkle tree (tests/test_merkle_pedersen.py:28-43)
@@ -783,6 +828,213 @@ def main() -> int:
             log(f"    {path} ({n} rows): {wall:.3f} s{steps}; {nl} launches")
         log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    with Phase("phase 8: transcripts, protocols and the rest of the Pedersen family"):
+        from crypto_primitives_tpu_torch.models.protocols.ipa_fold import (
+            ipa_fold_prove,
+            ipa_fold_prove_host,
+            ipa_fold_verify_host,
+        )
+        from crypto_primitives_tpu_torch.models.protocols.sumcheck import (
+            sumcheck_prove,
+            sumcheck_prove_host,
+            sumcheck_prover_compiled,
+            sumcheck_verify_host,
+        )
+        from crypto_primitives_tpu_torch.models.sponge.fiat_shamir import fold_argument, fold_argument_host
+        from crypto_primitives_tpu_torch.ops import field as ff
+        from crypto_primitives_tpu_torch.ops.curve import te_to_affine
+
+        torch.cuda.reset_peak_memory_stats()
+        summary8 = []
+
+        def call8(path, fn, needs):
+            t = time.time()
+            out, counts = drive(path, fn, needs)
+            for k in ("msm_te", "poseidon_permute"):
+                launches[k] += counts[k]
+            return out, time.time() - t, counts
+
+        def record8(path, wall, counts, steps, rest="host"):
+            summary8.append((path, wall, steps, counts))
+            log("    steps run again alone: " + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items())
+                + f"; the rest of the wall time ({rest}) {wall - sum(steps.values()):.3f} s")
+
+        def k1_launch_ms(batch):
+            """One poseidon_permute launch on (batch, 3, 8) states, by CUDA events."""
+            states = random_elements(FR, (batch, cfg.t), gen)
+            return median_ms(lambda: poseidon_kernel.permute(cfg, states), reps=20)
+
+        # the Bowe-Hopwood CRH at the JAX bench's window (phase 3 set it up)
+        curve = ED_ON_BLS12_377
+        t = time.time()
+        n_real = -(-(8 * 128) // 3)
+        bh_params.device_signed_table(n_real, torch.device("cuda"))
+        log(f"  Bowe-Hopwood {BH_WINDOW[0]} x {BH_WINDOW[1]}: signed-combos table ({n_real} of "
+            f"{BH_WINDOW[0] * BH_WINDOW[1]} groups) on the card in {time.time() - t:.2f} s")
+        bh_inputs = torch.randint(0, 256, (BH_ROWS, 128), dtype=torch.uint8, device="cuda", generator=gen)
+        xs, wall, counts = call8(f"Bowe-Hopwood CRH evaluate_batch, {curve.name}, {BH_ROWS} rows",
+                                 lambda: bh.evaluate_batch(bh_params, bh_inputs), ["msm_te"])
+        sample = torch.randperm(BH_ROWS, generator=torch.Generator().manual_seed(SEED))[:SAMPLE].tolist()
+        host = [bh.evaluate(bh_params, bytes(bh_inputs[i].cpu().numpy())) for i in sample]
+        require([int(v) for v in curve.base.unpack(xs[sample].cpu())] == host,
+                f"{SAMPLE} Bowe-Hopwood rows == host evaluate")
+        log(f"  {SAMPLE} sampled Bowe-Hopwood digests equal the host evaluate")
+        bh_table, bh_idx = curve_fast.grouped_operands(bh_params.device_signed_table(n_real, torch.device("cuda")),
+                                                       bytes_to_bits_batch(bh_inputs), 3)
+        acc, t_msm = step(lambda: msm_kernel.grouped_msm(curve, bh_table, bh_idx))
+        _, t_aff = step(lambda: te_to_affine(curve, acc))
+        record8(f"Bowe-Hopwood CRH, {BH_ROWS} rows", wall, counts, {"MSM": t_msm, "affine": t_aff})
+        ms = median_ms(lambda: msm_kernel.grouped_msm(curve, bh_table, bh_idx), reps=10)
+        b_ms, b_by = bound_ms(*msm_bound(curve, bh_table, bh_idx))
+        log(f"  msm_te on the signed-combos table ({bh_idx.shape[0]} rows x {bh_table.shape[0]} groups): "
+            f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x")
+        del acc, xs, bh_idx
+
+        # the injective-map compressors on phase 5's parameters and inputs
+        window, params, cparams, inputs, rbits, digests_x, comms_x = pedersen_te
+        crh_c, com_c = PedersenCRHCompressor(curve, window), PedersenCommitmentCompressor(curve, window)
+        got, wall, counts = call8(f"PedersenCRHCompressor evaluate_batch, {curve.name}, {TE_ROWS} rows",
+                                  lambda: crh_c.evaluate_batch(params, inputs), ["msm_te"])
+        require(torch.equal(got, digests_x), "the CRH compressor == phase 5's CRH x-coordinates")
+        acc, t_msm = step(lambda: crh_c.crh.evaluate_batch_projective(params, inputs))
+        _, t_aff = step(lambda: te_to_affine(curve, acc))
+        record8(f"PedersenCRHCompressor, {TE_ROWS} rows", wall, counts, {"MSM": t_msm, "affine": t_aff})
+        got, wall, counts = call8(f"PedersenCommitmentCompressor commit_batch, {curve.name}, {TE_ROWS} rows",
+                                  lambda: com_c.commit_batch(cparams, inputs, rbits), ["msm_te"])
+        require(torch.equal(got, comms_x), "the commitment compressor == phase 5's commitment x-coordinates")
+        acc, t_msm = step(lambda: curve_fast.add(curve, com_c.inner.crh.evaluate_batch_projective(
+            cparams.crh_params(), inputs), curve_fast.conditional_sum_grouped_auto(curve, cparams, rbits, 3)))
+        _, t_aff = step(lambda: te_to_affine(curve, acc))
+        record8(f"PedersenCommitmentCompressor, {TE_ROWS} rows", wall, counts, {"MSM": t_msm, "affine": t_aff})
+        log(f"  both compressors equal the x-coordinates of phase 5's CRH and commitment on all {TE_ROWS} rows")
+        del acc, got
+
+        # the fold argument
+        perm_ms = {b: k1_launch_ms(b) for b in (FOLD_B, SUMCHECK_B, IPA_B)}
+        coms = [[pyrng.randrange(FR.p) for _ in range(FOLD_R)] for _ in range(FOLD_B)]
+        (tag, z), wall, counts = call8(f"fold argument, B = {FOLD_B}, R = {FOLD_R}",
+                                       lambda: fold_argument(cfg, coms), ["poseidon_permute"])
+        sample = sorted(random.Random(SEED).sample(range(FOLD_B), SAMPLE))
+        tags, zs = fold_argument_host(cfg, [coms[i] for i in sample])
+        require([int(v) for v in FR.unpack(tag[sample, 0].cpu())] == tags, f"{SAMPLE} fold tags == host")
+        require([int(v) for v in FR.unpack(z[sample].cpu())] == zs, f"{SAMPLE} fold responses == host")
+        log(f"  {SAMPLE} sampled fold tags and responses equal fold_argument_host")
+        rows = random_elements(FR, (FOLD_B, FOLD_R), gen)
+
+        def fold_field():
+            acc = rows[:, 0]
+            for r in range(1, FOLD_R):
+                acc = ff.add(FR, ff.mont_mul(FR, acc, rows[:, r]), rows[:, r])
+            return acc
+
+        _, t_field = step(fold_field)
+        record8(f"fold argument, B = {FOLD_B}", wall, counts,
+                {"permutation": counts["poseidon_permute"] * perm_ms[FOLD_B] / 1e3, "field": t_field},
+                rest="host: packing the commitments, sponge glue")
+        del tag, z, rows
+
+        # sumcheck, eagerly and through its CUDA graph
+        table = random_elements(FR, (SUMCHECK_B, 1 << SUMCHECK_M), gen)
+        eager, wall, counts = call8(f"sumcheck_prove (eager), B = {SUMCHECK_B}, m = {SUMCHECK_M}",
+                                    lambda: sumcheck_prove(cfg, table), ["poseidon_permute"])
+        record8(f"sumcheck_prove (eager), B = {SUMCHECK_B}", wall, counts,
+                {"permutation": counts["poseidon_permute"] * perm_ms[SUMCHECK_B] / 1e3},
+                rest="the field steps: the half-table sums and the folds")
+        log(f"  peak device memory of the eager prover: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        fn = sumcheck_prover_compiled(cfg)
+        first, wall, counts = call8("sumcheck_prover_compiled: eager warm-up, capture and the first replay",
+                                    lambda: fn(table), ["poseidon_permute"])
+        captured = fn.captured_launches[(tuple(table.shape), str(table.device))]
+        require(captured > 0, "the sumcheck graph captured poseidon_permute launches")
+        summary8.append(("sumcheck_prover_compiled: warm-up, capture, replay", wall, {}, counts))
+        replay, wall, counts = call8("sumcheck_prover_compiled: replay", lambda: fn(table), [])
+        require(counts["poseidon_permute"] == 0, "a graph replay does not pass through the wrapper")
+        log(f"    the replay runs the {captured} poseidon_permute launches the graph captured from the eager run "
+            f"(counted there, once; not counted again on a replay)")
+        summary8.append((f"sumcheck_prover_compiled: replay ({captured} captured launches)", wall, {}, counts))
+        replay_ms = median_ms(lambda: fn(table), reps=5, warmup=1)
+        log(f"    a replay by CUDA events (the table's copy in, the graph, the outputs' copies out): "
+            f"{replay_ms:.2f} ms")
+
+        def flat(out):
+            s_row, rounds, fin = out
+            return torch.stack([s_row] + [x for pair in rounds for x in pair] + [fin])
+
+        require(torch.equal(flat(eager), flat(first)) and torch.equal(flat(eager), flat(replay)),
+                f"the sumcheck graph == the eager prover on all {SUMCHECK_B} instances")
+        log(f"  the graph's outputs (first replay and a later one) equal the eager prover's on all {SUMCHECK_B} "
+            f"instances")
+        sample = sorted(random.Random(SEED).sample(range(SUMCHECK_B), SAMPLE_PROTOCOL))
+        host_table = FR.unpack(table[sample].cpu())
+        sums, rounds_h, _, finals = sumcheck_prove_host(cfg, host_table)
+        s_row, rounds, fin = eager
+        got_rounds = [[(int(a), int(b)) for a, b in zip(FR.unpack(p0[sample].cpu()), FR.unpack(p1[sample].cpu()))]
+                      for p0, p1 in rounds]
+        for k, i in enumerate(sample):
+            msgs = [got_rounds[j][k] for j in range(SUMCHECK_M)]
+            require(int(FR.unpack(s_row[i].cpu())) == sums[k] and msgs == rounds_h[k]
+                    and int(FR.unpack(fin[i].cpu())) == finals[k], f"sumcheck instance {i} == host")
+            require(sumcheck_verify_host(cfg, sums[k], msgs, finals[k]), f"sumcheck instance {i} verifies")
+        log(f"  {SAMPLE_PROTOCOL} sampled instances equal sumcheck_prove_host and verify")
+        del table, eager, first, replay
+
+        # the IPA folding argument on JubJub
+        curve = JUBJUB
+        mod = fast_mod(curve)
+        gens = [curve.rand_point(pyrng) for _ in range(IPA_N)]
+        scalars = [[pyrng.randrange(curve.scalar.p) for _ in range(IPA_N)] for _ in range(IPA_B)]
+        proof, wall, counts = call8(f"ipa_fold_prove, {curve.name}, n = {IPA_N}, B = {IPA_B}",
+                                    lambda: ipa_fold_prove(curve, cfg, gens, scalars), ["poseidon_permute"])
+        sample = sorted(random.Random(SEED).sample(range(IPA_B), SAMPLE_PROTOCOL))
+        hosts = ipa_fold_prove_host(curve, cfg, gens, [scalars[i] for i in sample])
+        for k, i in enumerate(sample):
+            rounds_i = [(tuple(L[i]), tuple(R[i])) for L, R in proof["rounds"]]
+            require(tuple(proof["commitment"][i]) == hosts[k]["commitment"] and rounds_i == hosts[k]["rounds"]
+                    and proof["a_star"][i] == hosts[k]["a_star"], f"IPA instance {i} == host")
+            require(ipa_fold_verify_host(curve, cfg, gens, proof["commitment"][i], rounds_i, proof["a_star"][i]),
+                    f"IPA instance {i} verifies")
+            require(not ipa_fold_verify_host(curve, cfg, gens, proof["commitment"][i], rounds_i,
+                                             (proof["a_star"][i] + 1) % curve.scalar.p),
+                    f"a forged a_star of IPA instance {i} is rejected")
+        log(f"  {SAMPLE_PROTOCOL} sampled IPA proofs equal ipa_fold_prove_host, verify, and a forged a_star fails")
+        # the prover's curve steps again alone, at its shapes: the windowed
+        # products (the commitment over (B, n), then per round L and R, and
+        # the two halves of G', each one call on stacked points) and the
+        # affine steps (C, then L and R together)
+        sbits = torch.from_numpy(mod.scalars_to_bits(curve, [v for row in scalars for v in row])).cuda()
+        pts = torch.from_numpy(mod.pack_points(curve, gens)).cuda().expand(IPA_B, IPA_N, 4, -1)
+        bits = sbits.reshape(IPA_B, IPA_N, -1)
+        t_win, t_aff = 0.0, 0.0
+        prods, dt = step(lambda: mod.scalar_mul_bits_windowed(curve, pts, bits))
+        t_win += dt
+        _, dt = step(lambda: mod.to_affine(curve, mod.sum(curve, prods)))
+        t_aff += dt
+        half = IPA_N
+        while half > 1:
+            half //= 2
+            stacked = torch.stack([pts[:, :half], pts[:, half:2 * half]])
+            prods, dt = step(lambda: mod.scalar_mul_bits_windowed(
+                curve, stacked, torch.stack([bits[:, :half], bits[:, half:2 * half]])))
+            t_win += dt
+            _, dt = step(lambda: mod.to_affine(curve, mod.sum(curve, prods)))
+            t_aff += dt
+            _, dt = step(lambda: mod.scalar_mul_bits_windowed(curve, stacked, bits[None, :, :1].expand(2, -1, 1, -1)))
+            t_win += dt
+        record8(f"ipa_fold_prove, n = {IPA_N}, B = {IPA_B}", wall, counts,
+                {"windowed": t_win, "affine (incl. the sums)": t_aff,
+                 "permutation": counts["poseidon_permute"] * perm_ms[IPA_B] / 1e3},
+                rest="scalar folds, bits, host reads")
+        del prods, pts, bits, sbits
+
+        log("  phase 8 calls (wall; steps run again alone; launches):")
+        for path, wall, steps, counts in summary8:
+            parts = "".join(f"; {k} {v:.3f} s" for k, v in steps.items() if v)
+            log(f"    {path}: {wall:.3f} s{parts}; msm_te {counts['msm_te']}, "
+                f"poseidon_permute {counts['poseidon_permute']}")
+        log("  poseidon_permute per launch by CUDA events: "
+            + ", ".join(f"{b} states {v:.4f} ms" for b, v in perm_ms.items()))
+        log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     with Phase("phase 6: times"):
         half = LEAVES // 2
         # one whole level of 2^19 compressions, as the trees launch them
@@ -864,6 +1116,13 @@ def main() -> int:
                 "ms": times[name], "plain_ms": plain_times[name], "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None,
             })
+        # the transcripts' shapes: far under one wave of the card
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for b in (FOLD_B, SUMCHECK_B, IPA_B):
+            ms = k1_launch_ms(b)
+            b_ms, b_by = bound_ms(2 * b * cfg.t * FR.num_words * 4 + image_bytes, b * poseidon_ops(cfg))
+            log(f"  poseidon_permute at {b} states (a transcript's shape): {ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {ms / b_ms:.1f}x; {-(-b // 128)} blocks of 128 threads on {sms} SMs")
         log(f"  msm_sw row split k = {msm_sw_kernel.split_of(sw_curve)} ({sw_curve.name}); "
             f"split table {msm_sw_kernel.SPLIT}")
 

@@ -194,7 +194,9 @@ cudaError_t launch(const void* in, void* out, long long batch, int t, int alpha,
 // The constant bank is one per device, so a launch must not overwrite it
 // while an earlier launch, perhaps on another stream, still reads it: every
 // load waits for the previous launch on the device (an event), and host
-// threads take turns.
+// threads take turns.  Under stream capture (a CUDA graph) the wait and the
+// record are captured as external event nodes, so every replay of the graph
+// takes its turn on the same event as the launches outside it.
 std::mutex g_bank_mutex;
 cudaEvent_t g_bank_free[kMaxDevices];
 
@@ -206,7 +208,9 @@ cudaEvent_t g_bank_free[kMaxDevices];
 // word 0, n0 = -p^(-1) mod 2^32 at word 15), then the rows of
 // poseidon_sparse.kernel_rows in Montgomery form, nwords words each, for a
 // schedule whose first n_sparse partial rounds are sparse.  Returns a
-// cudaError_t (0 on success) and does not synchronise.
+// cudaError_t (0 on success) and does not synchronise.  It may be captured
+// into a CUDA graph (the bank's load, the launch and the event's wait and
+// record become the graph's nodes), provided `image` outlives the graph.
 extern "C" int poseidon_permute(const void* in, void* out, const void* image, long long image_words,
                                 long long batch, int nwords, int t, int alpha, int full_rounds,
                                 int partial_rounds, int n_sparse, int device, void* stream) {
@@ -228,11 +232,15 @@ extern "C" int poseidon_permute(const void* in, void* out, const void* image, lo
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+  err = cudaStreamIsCapturing(s, &capture);
+  if (err != cudaSuccess) return err;
+  const bool captured = capture == cudaStreamCaptureStatusActive;
   cudaEvent_t& free_ev = g_bank_free[device];
   if (free_ev == nullptr) {
     err = cudaEventCreateWithFlags(&free_ev, cudaEventDisableTiming);
   } else {
-    err = cudaStreamWaitEvent(s, free_ev, 0);
+    err = cudaStreamWaitEvent(s, free_ev, captured ? cudaEventWaitExternal : cudaEventWaitDefault);
   }
   if (err != cudaSuccess) return err;
   err = cudaMemcpyToSymbolAsync(kBank, image, (size_t)image_words * 4, 0, cudaMemcpyDeviceToDevice, s);
@@ -245,7 +253,7 @@ extern "C" int poseidon_permute(const void* in, void* out, const void* image, lo
     err = launch<12, 3, 3>(in, out, batch, t, alpha, full_rounds, partial_rounds, n_sparse, s);
   }
   if (err != cudaSuccess) return err;
-  return cudaEventRecord(free_ev, s);
+  return cudaEventRecordWithFlags(free_ev, s, captured ? cudaEventRecordExternal : cudaEventRecordDefault);
 }
 
 extern "C" const char* cpt_error_string(int code) {

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from crypto_primitives_tpu_torch.models.commitment.pedersen import PedersenCommitmentParameters
+from crypto_primitives_tpu_torch.models.crh.bowe_hopwood import BoweHopwoodParameters
 from crypto_primitives_tpu_torch.models.crh.pedersen import PedersenParameters
 from crypto_primitives_tpu_torch.models.sponge.poseidon import PoseidonConfig
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
@@ -38,6 +39,12 @@ def pedersen_parameters(curve, generators) -> PedersenParameters:
     """The JAX package's Pedersen CRH generators (a list of windows, each a
     list of host (x, y) int tuples) -> the port's PedersenParameters."""
     return PedersenParameters(curve, [_points(win) for win in generators])
+
+
+def bowe_hopwood_parameters(curve, generators) -> BoweHopwoodParameters:
+    """The JAX package's Bowe-Hopwood generators (a list of windows, each a
+    list of host (x, y) int tuples) -> the port's BoweHopwoodParameters."""
+    return BoweHopwoodParameters(curve, [_points(win) for win in generators])
 
 
 def commitment_parameters(curve, randomness_generator, generators) -> PedersenCommitmentParameters:

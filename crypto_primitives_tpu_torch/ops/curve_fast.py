@@ -19,11 +19,12 @@ on a TE curve.
 
 A fixed-base product k P runs on the same machinery: the table of P's
 doubling powers 2^j P, grouped, turns k's bits into one grouped MSM of
-ceil(nbits / w) groups (kernel ``msm_te``).  A variable-base product runs
-the windowed double-and-add in plain PyTorch, as the JAX package runs it in
-XLA (it has no TPU kernel).  The names at the end of the module (``add``,
-``neg``, ``fixed_base_mul``, ...) are shared with ``curve_sw_fast``, so the
-models never branch on the curve model.
+ceil(nbits / w) groups (kernel ``msm_te``).  :func:`pack_combos` packs any
+per-group point lists the same way (Bowe-Hopwood's signed-digit tables).  A
+variable-base product runs the windowed double-and-add in plain PyTorch, as
+the JAX package runs it in XLA (it has no TPU kernel).  The names at the end
+of the module (``add``, ``neg``, ``sum``, ``fixed_base_mul``, ...) are shared
+with ``curve_sw_fast``, so the models never branch on the curve model.
 """
 
 from __future__ import annotations
@@ -36,15 +37,16 @@ import torch.nn.functional as F
 
 from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel
-from crypto_primitives_tpu_torch.ops.curve import te_add, te_add_digits, te_neg, te_to_affine
+from crypto_primitives_tpu_torch.ops.curve import te_add, te_add_digits, te_neg, te_sum, te_to_affine
 from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
 
 __all__ = [
-    "add", "affine_host", "conditional_sum_grouped_auto", "device_fixed_base", "device_table",
+    "add", "affine_host", "combo_width", "conditional_sum_grouped_auto", "device_fixed_base", "device_table",
     "fixed_base_grouped_table", "fixed_base_mul", "fixed_base_powers", "fixed_base_sum", "grouped_operands",
-    "grouped_sum", "host_ints", "msm_many", "neg", "pack_points", "pack_table_grouped", "scalar_mul_bits_windowed",
-    "scalars_to_bits", "subset_groups", "te_conditional_sum_grouped", "te_fixed_base_mul",
-    "te_scalar_mul_bits_windowed", "to_affine", "unpack_affine", "window_indices", "windowed_digits",
+    "grouped_sum", "host_ints", "msm_many", "neg", "pack_combos", "pack_points", "pack_table_grouped",
+    "scalar_mul_bits_windowed", "scalars_to_bits", "subset_groups", "sum", "te_conditional_sum_grouped",
+    "te_fixed_base_mul", "te_scalar_mul_bits_windowed", "to_affine", "unpack_affine", "window_indices",
+    "windowed_digits",
 ]
 
 
@@ -66,14 +68,33 @@ def subset_groups(curve, pts, w: int):
     return groups
 
 
-def pack_table_grouped(curve, pts, w: int = 3) -> np.ndarray:
-    """Host points -> the (G, 2^w, 3, W) int32 word table of affine
-    (x, y, d*x*y) subset sums (curve a = -1, as the kernel needs)."""
+def combo_width(groups) -> int:
+    """The number E of points in every group of a table; E must be the same
+    power of two >= 2 for all of them."""
+    E = len(groups[0])
+    if E < 2 or E & (E - 1) or any(len(grp) != E for grp in groups):
+        raise ValueError(f"every group must hold the same power of two of points, got {[len(g) for g in groups]}")
+    return E
+
+
+def pack_combos(curve, groups) -> np.ndarray:
+    """Per-group host point lists -> the (G, E, 3, W) int32 word table of
+    affine (x, y, d*x*y) entries (curve a = -1, as the kernel needs):
+    groups[g][e] is the point that window value e selects in group g, and
+    every group holds the same power of two E of them.  The twin of
+    ``msm_rns_pallas.pack_combos_from_subsets``."""
     msm_kernel._check_curve(curve)
+    E = combo_width(groups)
     p, d = curve.base.p, curve.d
-    rows = [[x, y, d * x % p * y % p] for grp in subset_groups(curve, pts, w) for x, y in grp]
+    rows = [[x, y, d * x % p * y % p] for grp in groups for x, y in grp]
     words = curve.base.pack(np.asarray(rows, dtype=object).reshape(len(rows), 3))
-    return words.reshape(-1, 1 << w, 3, words.shape[-1])
+    return words.reshape(-1, E, 3, words.shape[-1])
+
+
+def pack_table_grouped(curve, pts, w: int = 3) -> np.ndarray:
+    """Host points -> the (G, 2^w, 3, W) :func:`pack_combos` table of their
+    :func:`subset_groups`."""
+    return pack_combos(curve, subset_groups(curve, pts, w))
 
 
 def window_indices(bits: torch.Tensor, groups: int, w: int) -> torch.Tensor:
@@ -204,17 +225,22 @@ def scalars_to_bits(curve, scalars) -> np.ndarray:
 
 def windowed_digits(add_digits, ident: torch.Tensor, base: torch.Tensor, bits: torch.Tensor, w: int) -> torch.Tensor:
     """base (..., C, L) digit points times scalars given as bits (..., N),
-    least significant first: the 2^w multiples 0..2^w - 1 of each base (2^w -
-    2 additions, one after another), then the windows of w bits from the
-    most significant down, each w doublings and one addition of the entry
-    the window selects (a gather).  The top window starts the sum, so its w
-    doublings of the identity are skipped."""
-    batch = bits.shape[:-1]
+    least significant first, the two batch shapes broadcast against each
+    other: the 2^w multiples 0..2^w - 1 of each base (2^w - 2 additions, one
+    after another), then the windows of w bits from the most significant
+    down, each w doublings and one addition of the entry the window selects
+    (a gather).  The top window starts the sum, so its w doublings of the
+    identity are skipped.  The window values are computed once on the bits
+    as given and broadcast as (..., G) values, so one scalar for many points
+    is never copied per point."""
     coords = base.shape[-2:]
+    nbits = bits.shape[-1]
+    batch = torch.broadcast_shapes(bits.shape[:-1], base.shape[:-2])
     base = base.expand(batch + coords).reshape((-1,) + coords)
-    B, nbits = base.shape[0], bits.shape[-1]
+    B = base.shape[0]
     G = -(-nbits // w)
-    vals = window_indices(bits.reshape(B, nbits), G, w).to(torch.int64)  # (B, G)
+    vals = window_indices(bits.reshape(-1, nbits), G, w).reshape(bits.shape[:-1] + (G,))
+    vals = vals.expand(batch + (G,)).reshape(B, G).to(torch.int64)
     rows = [ident.expand(base.shape), base]
     for _ in range(2, 1 << w):
         rows.append(add_digits(rows[-1], base))
@@ -230,9 +256,9 @@ def windowed_digits(add_digits, ident: torch.Tensor, base: torch.Tensor, bits: t
 
 def te_scalar_mul_bits_windowed(curve, base: torch.Tensor, bits: torch.Tensor, w: int = 4) -> torch.Tensor:
     """base (..., 4, W) extended points times scalars given as bits
-    (..., nbits), least significant first (:func:`windowed_digits`); base
-    broadcasts over the bits' batch.  Plain PyTorch on any device: the JAX
-    package has no TPU kernel for it."""
+    (..., nbits), least significant first (:func:`windowed_digits`); the
+    batch shapes of base and bits broadcast.  Plain PyTorch on any device:
+    the JAX package has no TPU kernel for it."""
     ident = curve._consts(base.device)["identity"]
     return ff.from_digits(windowed_digits(lambda a, b: te_add_digits(curve, a, b), ident,
                                           ff.to_digits(base), bits, w))
@@ -280,6 +306,7 @@ def unpack_affine(curve, pts: torch.Tensor):
 # models dispatch through ``curve_fast_any.fast_mod``)
 add = te_add
 neg = te_neg
+sum = te_sum
 to_affine = te_to_affine
 fixed_base_mul = te_fixed_base_mul
 scalar_mul_bits_windowed = te_scalar_mul_bits_windowed

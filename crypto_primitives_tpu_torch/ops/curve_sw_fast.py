@@ -24,6 +24,7 @@ from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops import msm_sw_kernel
 from crypto_primitives_tpu_torch.ops.curve_fast import (
     affine_host,
+    combo_width,
     conditional_sum_grouped_auto,
     device_table,
     fixed_base_powers,
@@ -36,22 +37,30 @@ from crypto_primitives_tpu_torch.ops.curve_fast import (
     window_indices,
     windowed_digits,
 )
-from crypto_primitives_tpu_torch.ops.curve_sw import sw_add, sw_add_digits, sw_neg, sw_to_affine
+from crypto_primitives_tpu_torch.ops.curve_sw import sw_add, sw_add_digits, sw_neg, sw_sum, sw_to_affine
 
 __all__ = [
     "add", "conditional_sum_grouped_auto", "device_table", "fixed_base_grouped_table", "fixed_base_mul",
-    "msm_many", "neg", "pack_points", "pack_table_grouped", "scalar_mul_bits_windowed", "scalars_to_bits",
-    "subset_groups", "sw_conditional_sum_grouped", "sw_fixed_base_mul", "sw_scalar_mul_bits_windowed",
-    "to_affine", "unpack_affine", "window_indices",
+    "msm_many", "neg", "pack_combos", "pack_points", "pack_table_grouped", "scalar_mul_bits_windowed",
+    "scalars_to_bits", "subset_groups", "sum", "sw_conditional_sum_grouped", "sw_fixed_base_mul",
+    "sw_scalar_mul_bits_windowed", "to_affine", "unpack_affine", "window_indices",
 ]
 
 
+def pack_combos(curve, groups) -> np.ndarray:
+    """Per-group host point lists (``None`` for the identity) -> the
+    (G, E, 3, W) int32 word table of projective entries (Z = 1, or the
+    identity (0 : 1 : 0)): groups[g][e] is the point that window value e
+    selects in group g, E the same power of two for every group."""
+    E = combo_width(groups)
+    words = curve.pack_points([pt for grp in groups for pt in grp])
+    return words.reshape(-1, E, 3, words.shape[-1])
+
+
 def pack_table_grouped(curve, pts, w: int = 3) -> np.ndarray:
-    """Host points -> the (G, 2^w, 3, W) int32 word table of projective
-    subset sums (Z = 1, or the identity (0 : 1 : 0))."""
-    flat = [pt for grp in subset_groups(curve, pts, w) for pt in grp]
-    words = curve.pack_points(flat)
-    return words.reshape(-1, 1 << w, 3, words.shape[-1])
+    """Host points -> the (G, 2^w, 3, W) :func:`pack_combos` table of their
+    subset sums."""
+    return pack_combos(curve, subset_groups(curve, pts, w))
 
 
 def sw_conditional_sum_grouped(curve, table: torch.Tensor, bits: torch.Tensor, w: int = 3) -> torch.Tensor:
@@ -95,6 +104,7 @@ def unpack_affine(curve, pts: torch.Tensor):
 # Curve-model-agnostic names, shared with ``curve_fast``
 add = sw_add
 neg = sw_neg
+sum = sw_sum
 to_affine = sw_to_affine
 fixed_base_mul = sw_fixed_base_mul
 scalar_mul_bits_windowed = sw_scalar_mul_bits_windowed

@@ -4,7 +4,10 @@ every curve they are built for (``msm_sw`` also at every row split it takes;
 both at the fixed-base shapes of 20 and 84-86 groups, and under
 ``msm_many``), and the field arithmetic they share (through the test-only
 field probe); the windowed product and the Schnorr and ElGamal batch entry
-points on CUDA tensors against the same on CPU tensors.
+points on CUDA tensors against the same on CPU tensors; ``msm_te`` on
+Bowe-Hopwood's signed-digit table; Bowe-Hopwood, the injective-map
+compressors, the fold argument and the IPA prover on the card against the
+CPU; the sumcheck prover's CUDA graph against the eager prover.
 
 Every test here needs a CUDA device and skips without one.  On a machine with
 a card (and without JAX, which tests/conftest.py imports):
@@ -335,3 +338,124 @@ def test_schnorr_and_elgamal_on_the_card_match_cpu(cuda, name):
     assert kern.launches >= before + 5
     assert on_card == run("cpu")
     assert on_card[2] == [True] * 39 + [False]
+
+
+@pytest.mark.parametrize("groups", [20, 341, 342])
+def test_msm_te_on_the_signed_combos_table_matches_plain(cuda, groups):
+    """K4 on Bowe-Hopwood's signed-digit table (negated points, identity rows
+    past n_real) at ed-on-bls12-377's window 63 x 6: 342 groups is what
+    128-byte inputs reach; 20 and 341 leave a partial 32-group index tile."""
+    import random
+
+    from crypto_primitives_tpu_torch.models.crh import Window
+    from crypto_primitives_tpu_torch.models.crh.bowe_hopwood import BoweHopwoodCRH
+    from crypto_primitives_tpu_torch.ops import curve_fast, curves_known, msm_kernel
+
+    curve = curves_known.ED_ON_BLS12_377
+    params = BoweHopwoodCRH(curve, Window(63, 6)).setup(random.Random(9))
+    table = params.device_signed_table(groups, cuda)
+    g = torch.Generator(device="cuda").manual_seed(groups)
+    bits = torch.randint(0, 2, (4096, 3 * groups), dtype=torch.uint8, device=cuda, generator=g)
+    bits[0], bits[1] = 0, 1
+    table, idx = curve_fast.grouped_operands(table, bits, 3)
+    assert table.shape[0] == groups
+    before = msm_kernel.launches
+    got = msm_kernel.grouped_msm(curve, table, idx)
+    assert msm_kernel.launches == before + 1
+    assert torch.equal(got, msm_kernel.grouped_msm_plain(curve, table, idx))
+
+
+def test_bowe_hopwood_and_compressors_on_the_card_match_cpu(cuda):
+    import random
+
+    from crypto_primitives_tpu_torch.models.commitment import PedersenCommitmentCompressor
+    from crypto_primitives_tpu_torch.models.crh import Window
+    from crypto_primitives_tpu_torch.models.crh.bowe_hopwood import BoweHopwoodCRH
+    from crypto_primitives_tpu_torch.models.crh.injective_map import PedersenCRHCompressor
+    from crypto_primitives_tpu_torch.ops import curves_known, msm_kernel
+
+    curve = curves_known.ED_ON_BLS12_377
+    g = torch.Generator().manual_seed(10)
+    inputs = torch.randint(0, 256, (300, 128), dtype=torch.uint8, generator=g)
+    bh = BoweHopwoodCRH(curve, Window(63, 6))
+    params = bh.setup(random.Random(10))
+    before = msm_kernel.launches
+    got = bh.evaluate_batch(params, inputs.to(cuda), device=cuda)
+    assert msm_kernel.launches == before + 1
+    assert torch.equal(got.cpu(), bh.evaluate_batch(params, inputs, device="cpu"))
+    assert [int(v) for v in curve.base.unpack(got[:3].cpu())] == [bh.evaluate(params, bytes(r.numpy()))
+                                                                  for r in inputs[:3]]
+    crh = PedersenCRHCompressor(curve, Window(250, 8))
+    cparams = crh.setup(random.Random(11))
+    assert torch.equal(crh.evaluate_batch(cparams, inputs.to(cuda), device=cuda).cpu(),
+                       crh.evaluate_batch(cparams, inputs, device="cpu"))
+    com = PedersenCommitmentCompressor(curve, Window(250, 8))
+    mparams = com.setup(random.Random(12))
+    rbits = torch.from_numpy(com.inner.randomness_to_bits([com.rand_randomness(random.Random(i)) for i in range(300)]))
+    assert torch.equal(com.commit_batch(mparams, inputs.to(cuda), rbits.to(cuda), device=cuda).cpu(),
+                       com.commit_batch(mparams, inputs, rbits, device="cpu"))
+
+
+def _fr_rows(shape, seed):
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(48), "little") % BLS12_381_FR.p for _ in range(int(np.prod(shape)))]
+    return torch.from_numpy(BLS12_381_FR.pack(np.asarray(vals, dtype=object).reshape(shape)))
+
+
+def test_sumcheck_graph_replays_equal_the_eager_prover(cuda):
+    """The CUDA graph of the whole prover equals the eager prover on the card
+    (and on the CPU), for its first table and for a second table replayed
+    through the same graph."""
+    from crypto_primitives_tpu_torch.models.protocols.sumcheck import sumcheck_prove, sumcheck_prover_compiled
+
+    cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+    fn = sumcheck_prover_compiled(cfg)
+
+    def flat(out):
+        s, rounds, fin = out
+        return torch.stack([s] + [x for pair in rounds for x in pair] + [fin]).cpu()
+
+    first, second = _fr_rows((64, 32), 1), _fr_rows((64, 32), 2)
+    before = poseidon_kernel.launches
+    got1 = flat(fn(first.to(cuda)))
+    captured = fn.captured_launches[((64, 32, 8), str(first.to(cuda).device))]
+    assert captured == 6  # m + 1 permutations at m = 5
+    assert poseidon_kernel.launches == before + 2 * captured  # the warm-up, then the capture
+    assert len(fn.graphs) == 1
+    want1 = flat(sumcheck_prove(cfg, first.to(cuda), device=cuda))
+    assert torch.equal(got1, want1)
+    assert torch.equal(want1, flat(sumcheck_prove(cfg, first, device="cpu")))
+    before = poseidon_kernel.launches
+    got2 = flat(fn(second.to(cuda)))
+    assert poseidon_kernel.launches == before  # a replay does not pass through the wrapper
+    assert len(fn.graphs) == 1
+    assert torch.equal(got2, flat(sumcheck_prove(cfg, second.to(cuda), device=cuda)))
+    assert not torch.equal(got1, got2)
+
+
+def test_fold_argument_and_ipa_on_the_card_match_cpu(cuda):
+    import random
+
+    from crypto_primitives_tpu_torch.models.protocols.ipa_fold import ipa_fold_prove
+    from crypto_primitives_tpu_torch.models.sponge.fiat_shamir import fold_argument
+    from crypto_primitives_tpu_torch.ops import curves_known
+
+    cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+    rng = random.Random(13)
+    coms = [[rng.randrange(BLS12_381_FR.p) for _ in range(5)] for _ in range(100)]
+    before = poseidon_kernel.launches
+    tag, z = fold_argument(cfg, coms, device=cuda)
+    assert poseidon_kernel.launches == before + 6
+    tag_cpu, z_cpu = fold_argument(cfg, coms, device="cpu")
+    assert torch.equal(tag.cpu(), tag_cpu) and torch.equal(z.cpu(), z_cpu)
+    curve = curves_known.JUBJUB
+    gens = [curve.rand_point(rng) for _ in range(4)]
+    scalars = [[rng.randrange(curve.scalar.p) for _ in range(4)] for _ in range(6)]
+    before = poseidon_kernel.launches
+    on_card = ipa_fold_prove(curve, cfg, gens, scalars, device=cuda)
+    assert poseidon_kernel.launches > before
+    on_cpu = ipa_fold_prove(curve, cfg, gens, scalars, device="cpu")
+    assert on_card["a_star"] == on_cpu["a_star"]
+    assert (on_card["challenges"] == on_cpu["challenges"]).all()
+    assert list(on_card["commitment"]) == list(on_cpu["commitment"])
+    assert [(list(L), list(R)) for L, R in on_card["rounds"]] == [(list(L), list(R)) for L, R in on_cpu["rounds"]]

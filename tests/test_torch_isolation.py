@@ -79,6 +79,12 @@ def test_entry_points_without_device_need_cuda():
     from crypto_primitives_tpu_torch.ops.curves_known import BLS12_381_G1, JUBJUB
     from crypto_primitives_tpu_torch.models.sponge import PoseidonSpongeBatch, get_default_poseidon_parameters
     from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FR as FR
+    from crypto_primitives_tpu_torch.models.commitment import PedersenCommitmentCompressor
+    from crypto_primitives_tpu_torch.models.crh.bowe_hopwood import BoweHopwoodCRH
+    from crypto_primitives_tpu_torch.models.crh.injective_map import PedersenCRHCompressor
+    from crypto_primitives_tpu_torch.models.protocols import sumcheck_prove
+    from crypto_primitives_tpu_torch.models.protocols.ipa_fold import ipa_fold_prove
+    from crypto_primitives_tpu_torch.models.sponge.fiat_shamir import FiatShamir, fold_argument
 
     cfg = get_default_poseidon_parameters(FR, 2)
     leaves = np.zeros((4, 32), dtype=np.uint8)
@@ -104,6 +110,14 @@ def test_entry_points_without_device_need_cuda():
         lambda: ElGamal(JUBJUB).encrypt_batch(ElGamalParameters(JUBJUB.generator), JUBJUB.generator,
                                               [JUBJUB.generator], [1]),
         lambda: ElGamal(BLS12_381_G1).decrypt_batch(None, 1, [(None, None)]),
+        lambda: BoweHopwoodCRH(JUBJUB, Window(4, 8)).evaluate_batch(None, leaves[:, :4]),
+        lambda: PedersenCRHCompressor(JUBJUB, Window(4, 8)).evaluate_batch(None, leaves[:, :4]),
+        lambda: PedersenCommitmentCompressor(JUBJUB, Window(4, 8)).commit_batch(None, leaves[:, :4],
+                                                                                 np.zeros((4, 252), dtype=np.uint8)),
+        lambda: FiatShamir(cfg, batch_shape=(2,)),
+        lambda: fold_argument(cfg, [[1, 2], [3, 4]]),
+        lambda: sumcheck_prove(cfg, torch.zeros((2, 4, 8), dtype=torch.int32)),
+        lambda: ipa_fold_prove(JUBJUB, cfg, [JUBJUB.generator] * 2, [[1, 2]]),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
