@@ -48,6 +48,22 @@ Phases (each prints a flushed line before and after, with its seconds):
      oracles and verifiers, a forged IPA scalar rejected; each call's wall
      time and its steps (MSM, windowed, affine; permutation and field) and
      launches;
+  9. Blake2s and the R1CS tier (run after phase 8, before phase 6): the
+     Blake2s PRF, the parameter-block PRF (salt and person) and the Blake2s
+     commitment (128-byte inputs) on 2^16 rows each, every row held against
+     hashlib, and ops.blake2s at lengths 0-129 (block edges), keyed and
+     not, 32- and 16-byte digests; batched R1CS circuits synthesised as one
+     trace and checked on the card: the Blake2s PRF (21792 constraints) and
+     the SHA-256 CRH on 55-byte messages at N = 1024 (digests equal to
+     evaluate_batch and to ops.sha256, K3; the int64 small-domain check; one
+     digest bit's witness flipped in one instance fails that instance alone,
+     and which_unsatisfied names the constraint the scalar tier names on the
+     host), the Poseidon two-to-one CRH at N = 4096 (the Montgomery check;
+     outputs equal to PoseidonTwoToOneCRH.evaluate_batch, K1), and
+     check_satisfied_device on the scalar Blake2s PRF circuit (about 122,000
+     nonzeros), true and then false after the same flip; a torch.profiler
+     trace around one evaluate_batch (utils.profiling.capture) holding its
+     annotate span; each call's host synthesis and device check times;
   6. times: each kernel at its path's shape (its output there held on 4096
      random rows against the plain version), the plain version's time, and
      the bound the card sets; SHA-256's byte entry at 2^19 messages of 64
@@ -101,6 +117,14 @@ SUMCHECK_B, SUMCHECK_M = 4096, 10
 # over the 90 s it may take
 IPA_B, IPA_N = 1024, 4
 SAMPLE_PROTOCOL = 16  # sumcheck and IPA instances held against the host oracles
+# phase 9: the JAX package's PRF bench shape (benches/prf.py:19), and the
+# batched R1CS circuits' instance counts
+BLAKE_ROWS = 1 << 16
+BLAKE_LENGTHS = (0, 1, 63, 64, 65, 128, 129)
+BLAKE_LENGTH_ROWS = 1024
+R1CS_BYTE_N = 1024  # the Blake2s PRF and SHA-256 CRH circuits
+R1CS_FIELD_N = 4096  # the Poseidon two-to-one circuit
+R1CS_TAMPERED = 517  # the instance whose digest bit is flipped
 
 # Pinned BLS12-381 Fr sponge output: absorb [0, 1, 2], squeeze 3
 # (tests/test_poseidon.py:121-129, the reference's src/sponge/poseidon/mod.rs:381-404).
@@ -1034,6 +1058,191 @@ def main() -> int:
         log("  poseidon_permute per launch by CUDA events: "
             + ", ".join(f"{b} states {v:.4f} ms" for b, v in perm_ms.items()))
         log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    with Phase("phase 9: Blake2s, the R1CS tier and its checks on the card"):
+        import numpy as np
+
+        from crypto_primitives_tpu_torch.models.commitment import Blake2sCommitment
+        from crypto_primitives_tpu_torch.models.prf import Blake2sPRF, Blake2sWithParameterBlock
+        from crypto_primitives_tpu_torch.ops.blake2s import blake2s
+        from crypto_primitives_tpu_torch.r1cs import ConstraintSystem, FpVar
+        from crypto_primitives_tpu_torch.r1cs.batch import BatchConstraintSystem
+        from crypto_primitives_tpu_torch.r1cs.device_check import check_satisfied_device
+        from crypto_primitives_tpu_torch.r1cs.gadgets.blake2s import Blake2sPRFGadget
+        from crypto_primitives_tpu_torch.r1cs.gadgets.poseidon import PoseidonTwoToOneCRHGadget
+        from crypto_primitives_tpu_torch.r1cs.gadgets.sha256 import Sha256CRHGadget
+        from crypto_primitives_tpu_torch.r1cs.vars import bytes_to_uint8s
+        from crypto_primitives_tpu_torch.utils import profiling
+
+        summary9 = []
+
+        def timed(label, fn):
+            """Host clock around fn, ending in a synchronize."""
+            t = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.time() - t
+            summary9.append((label, dt))
+            return out, dt
+
+        def hashlib_rows(rows_np, **kw):
+            return np.frombuffer(b"".join(hashlib.blake2s(r.tobytes(), **kw).digest() for r in rows_np),
+                                 dtype=np.uint8).reshape(rows_np.shape[0], -1)
+
+        # Blake2s: the PRF, the parameter-block PRF and the commitment on 2^16 rows
+        seeds = torch.randint(0, 256, (BLAKE_ROWS, 32), dtype=torch.uint8, device="cuda", generator=gen)
+        inputs = torch.randint(0, 256, (BLAKE_ROWS, 32), dtype=torch.uint8, device="cuda", generator=gen)
+        prf_out, _ = timed(f"Blake2sPRF.evaluate_batch, {BLAKE_ROWS} rows",
+                           lambda: drive("Blake2sPRF.evaluate_batch", lambda: Blake2sPRF.evaluate_batch(seeds, inputs),
+                                         [])[0])
+        both = torch.cat([seeds, inputs], dim=1).cpu().numpy()
+        require(np.array_equal(prf_out.cpu().numpy(), hashlib_rows(both)), f"{BLAKE_ROWS} PRF rows == hashlib")
+        pblock = Blake2sWithParameterBlock(salt=b"saltsalt", personalization=b"personal")
+        got, _ = timed(f"Blake2sWithParameterBlock.evaluate_batch, {BLAKE_ROWS} x 32 bytes",
+                       lambda: pblock.evaluate_batch(inputs))
+        require(np.array_equal(got.cpu().numpy(), hashlib_rows(inputs.cpu().numpy(), salt=b"saltsalt",
+                                                               person=b"personal")),
+                f"{BLAKE_ROWS} parameter-block PRF rows == hashlib")
+        messages = torch.randint(0, 256, (BLAKE_ROWS, 128), dtype=torch.uint8, device="cuda", generator=gen)
+        got, _ = timed(f"Blake2sCommitment.commit_batch, {BLAKE_ROWS} x 128 bytes + 32",
+                       lambda: Blake2sCommitment().commit_batch(None, messages, seeds))
+        require(np.array_equal(got.cpu().numpy(), hashlib_rows(torch.cat([messages, seeds], 1).cpu().numpy())),
+                f"{BLAKE_ROWS} commitment rows == hashlib")
+        for n in BLAKE_LENGTHS:
+            msgs = torch.randint(0, 256, (BLAKE_LENGTH_ROWS, n), dtype=torch.uint8, device="cuda", generator=gen)
+            host = msgs.cpu().numpy()
+            for key in (b"", bytes(range(7, 39))):
+                for size in (32, 16):
+                    got = blake2s(msgs, size, key).cpu().numpy()
+                    require(np.array_equal(got, hashlib_rows(host, digest_size=size, key=key)),
+                            f"blake2s of {n} bytes, key of {len(key)}, digest {size} == hashlib")
+        log(f"  Blake2s: {BLAKE_ROWS} rows of the PRF, the parameter-block PRF and the commitment, and "
+            f"{BLAKE_LENGTH_ROWS} rows at lengths {BLAKE_LENGTHS}, keyed and not, digests of 32 and 16 bytes, "
+            f"all equal to hashlib")
+
+        # the batched byte circuits at N = R1CS_BYTE_N
+        nprng = np.random.default_rng(SEED)
+        bad = R1CS_TAMPERED
+
+        def byte_circuit(name, synth, scalar_synth, want):
+            """Synthesise N instances as one trace, hold the digests, check on the
+            card, flip one digest bit's witness in one instance, and hold
+            which_unsatisfied against the scalar tier on the host."""
+            t = time.time()
+            bcs = BatchConstraintSystem(FR, R1CS_BYTE_N)
+            out = synth(bcs)
+            digests = out.value
+            t_synth = time.time() - t
+            summary9.append((f"{name}: host synthesis of {R1CS_BYTE_N} instances", t_synth))
+            require(np.array_equal(digests, want), f"{name}: every instance's digest == the native hash")
+            ok, t_first = timed(f"{name}: satisfied_per_instance (first: COO centering, z to the card)",
+                                lambda: bcs.satisfied_per_instance())
+            require(bool(ok.all()), f"{name}: every instance satisfied on the card")
+            _, t_check = timed(f"{name}: satisfied_per_instance (again)", lambda: bcs.satisfied_per_instance())
+            t = time.time()
+            scs = ConstraintSystem(FR)
+            sout = scalar_synth(scs)
+            summary9.append((f"{name}: scalar-tier synthesis of instance {bad}", time.time() - t))
+            require((scs.num_constraints, scs.num_witness) == (bcs.num_constraints, bcs.num_witness),
+                    f"{name}: constraint and witness counts == the scalar tier's")
+            require(sout.value == digests[bad].tobytes(), f"{name}: instance {bad} == the scalar tier")
+            k = list(out.bytes[0].bits[0].fp.lc.terms)[0]
+            bcs.assignments[k].v[bad] ^= 1
+            per, _ = timed(f"{name}: satisfied_per_instance after the flip", lambda: bcs.satisfied_per_instance())
+            require(per.tolist() == [i != bad for i in range(R1CS_BYTE_N)],
+                    f"{name}: exactly instance {bad} fails after its flip")
+            first, _ = timed(f"{name}: which_unsatisfied", lambda: bcs.which_unsatisfied())
+            scs.assignments[k] ^= 1
+            host_first, _ = timed(f"{name}: the scalar tier's which_unsatisfied on the host",
+                                  lambda: scs.which_unsatisfied())
+            require(int(first[bad]) == host_first and bcs.which_unsatisfied(bad) == host_first
+                    and int((first >= 0).sum()) == 1,
+                    f"{name}: which_unsatisfied on the card names constraint {host_first}, as the host does")
+            log(f"  {name}: {bcs.num_constraints} constraints, {bcs.num_witness} witnesses, {R1CS_BYTE_N} "
+                f"instances; synthesis {t_synth:.3f} s, check {t_first:.3f} s first and {t_check:.3f} s again; "
+                f"instance {bad} alone fails after its flip, at constraint {host_first} on the card and the host")
+            return scs, k
+
+        pseeds, pinputs = (nprng.integers(0, 256, (R1CS_BYTE_N, 32), dtype=np.uint8) for _ in range(2))
+        want = Blake2sPRF.evaluate_batch(pseeds, pinputs).cpu().numpy()
+        scs, k = byte_circuit(
+            "Blake2s PRF circuit",
+            lambda cs: Blake2sPRFGadget.evaluate(cs, Blake2sPRFGadget.new_seed(cs, pseeds), bytes_to_uint8s(cs, pinputs)),
+            lambda cs: Blake2sPRFGadget.evaluate(cs, Blake2sPRFGadget.new_seed(cs, pseeds[bad].tobytes()),
+                                                 bytes_to_uint8s(cs, pinputs[bad].tobytes())),
+            want)
+        require(scs.num_constraints == 21792, "one Blake2s block is 21792 constraints")
+        # check_satisfied_device on the scalar circuit (its flip is in place): false,
+        # then true once the flip is undone
+        coo = scs.to_coo()
+        nnz = sum(len(coo[m][0]) for m in "abc")
+        flipped, t_false = timed(f"check_satisfied_device, scalar Blake2s PRF ({nnz} nonzeros), flipped",
+                                 lambda: check_satisfied_device(scs))
+        scs.assignments[k] ^= 1
+        clean, t_true = timed(f"check_satisfied_device, scalar Blake2s PRF ({nnz} nonzeros)",
+                              lambda: check_satisfied_device(scs))
+        require(clean is True and flipped is False, "check_satisfied_device: true, and false after the flip")
+        log(f"  check_satisfied_device on the scalar Blake2s PRF circuit, {nnz} nonzeros: true in {t_true:.3f} s, "
+            f"false after the flip in {t_false:.3f} s")
+
+        sdata = nprng.integers(0, 256, (R1CS_BYTE_N, 55), dtype=np.uint8)
+        sdata_cuda = torch.from_numpy(sdata).cuda()
+        (want, counts), _ = timed(f"ops.sha256 of the circuit's {R1CS_BYTE_N} messages",
+                                  lambda: drive("ops.sha256, 55-byte messages", lambda: sha256(sdata_cuda),
+                                                ["sha256_compress"]))
+        launches["sha256_compress"] += counts["sha256_compress"]
+        byte_circuit("SHA-256 CRH circuit, 55 bytes",
+                     lambda cs: Sha256CRHGadget().evaluate(cs, bytes_to_uint8s(cs, sdata)),
+                     lambda cs: Sha256CRHGadget().evaluate(cs, bytes_to_uint8s(cs, sdata[bad].tobytes())),
+                     want.cpu().numpy())
+
+        # the batched field circuit: Poseidon two-to-one at N = R1CS_FIELD_N
+        left = random_elements(FR, (R1CS_FIELD_N,), gen)
+        right = random_elements(FR, (R1CS_FIELD_N,), gen)
+        t = time.time()
+        bcs = BatchConstraintSystem(FR, R1CS_FIELD_N)
+        pout = PoseidonTwoToOneCRHGadget(cfg).compress(bcs, FpVar.new_witness(bcs, left), FpVar.new_witness(bcs, right))
+        torch.cuda.synchronize()
+        t_synth = time.time() - t
+        summary9.append((f"Poseidon two-to-one circuit: synthesis of {R1CS_FIELD_N} instances (field tier on the card)",
+                         t_synth))
+        (native, counts), _ = timed(f"PoseidonTwoToOneCRH.evaluate_batch, {R1CS_FIELD_N} rows",
+                                    lambda: drive("PoseidonTwoToOneCRH.evaluate_batch",
+                                                  lambda: PoseidonTwoToOneCRH(FR).evaluate_batch(cfg, left, right),
+                                                  ["poseidon_permute"]))
+        launches["poseidon_permute"] += counts["poseidon_permute"]
+        require(torch.equal(pout.value, native), f"{R1CS_FIELD_N} Poseidon circuit outputs == evaluate_batch")
+        torch.cuda.reset_peak_memory_stats()
+        sat, t_check = timed("Poseidon two-to-one circuit: is_satisfied (the Montgomery check)",
+                             lambda: bcs.is_satisfied())
+        require(sat, "the Poseidon circuit is satisfied on the card")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kp = list(pout.lc.terms)[0]
+        bcs.assignments[kp] = bcs.assignments[kp].clone()
+        bcs.assignments[kp][bad] = left[bad]
+        per, _ = timed("Poseidon two-to-one circuit: satisfied_per_instance after a flip",
+                       lambda: bcs.satisfied_per_instance())
+        require(per.tolist() == [i != bad for i in range(R1CS_FIELD_N)],
+                f"Poseidon circuit: exactly instance {bad} fails after its output changed")
+        log(f"  Poseidon two-to-one circuit: {bcs.num_constraints} constraints, {bcs.num_witness} witnesses, "
+            f"{R1CS_FIELD_N} instances; synthesis {t_synth:.3f} s, Montgomery check {t_check:.3f} s (peak "
+            f"{peak:.2f} GiB); outputs equal evaluate_batch; instance {bad} alone fails after its output changed")
+
+        # a torch.profiler trace around one evaluate_batch
+        with profiling.capture(str(build.BUILD_DIR / "profiles")) as trace_path:
+            with profiling.annotate("blake2s_prf_evaluate_batch"):
+                Blake2sPRF.evaluate_batch(seeds, inputs)
+                torch.cuda.synchronize()
+        events = json.load(open(trace_path))["traceEvents"]
+        require(any(e.get("name") == "blake2s_prf_evaluate_batch" for e in events),
+                "the captured trace holds the annotate span")
+        n_kernel_events = sum(1 for e in events if e.get("cat") == "kernel")
+        log(f"  utils.profiling.capture: {len(events)} events, the annotate span present, "
+            f"{n_kernel_events} CUDA kernel events")
+
+        log("  phase 9 calls (host clock, ending in a synchronize):")
+        for label, dt in summary9:
+            log(f"    {label}: {dt:.3f} s")
 
     with Phase("phase 6: times"):
         half = LEAVES // 2

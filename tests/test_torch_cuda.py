@@ -7,7 +7,10 @@ field probe); the windowed product and the Schnorr and ElGamal batch entry
 points on CUDA tensors against the same on CPU tensors; ``msm_te`` on
 Bowe-Hopwood's signed-digit table; Bowe-Hopwood, the injective-map
 compressors, the fold argument and the IPA prover on the card against the
-CPU; the sumcheck prover's CUDA graph against the eager prover.
+CPU; the sumcheck prover's CUDA graph against the eager prover; Blake2s
+(the PRFs and the commitment) and the R1CS checks (``check_satisfied_device``,
+the batched small-domain and Montgomery checks, ``which_unsatisfied``) on
+the card against the CPU, tampered and not.
 
 Every test here needs a CUDA device and skips without one.  On a machine with
 a card (and without JAX, which tests/conftest.py imports):
@@ -459,3 +462,110 @@ def test_fold_argument_and_ipa_on_the_card_match_cpu(cuda):
     assert (on_card["challenges"] == on_cpu["challenges"]).all()
     assert list(on_card["commitment"]) == list(on_cpu["commitment"])
     assert [(list(L), list(R)) for L, R in on_card["rounds"]] == [(list(L), list(R)) for L, R in on_cpu["rounds"]]
+
+
+def test_blake2s_on_the_card_matches_cpu(cuda):
+    from crypto_primitives_tpu_torch.models.commitment import Blake2sCommitment
+    from crypto_primitives_tpu_torch.models.prf import Blake2sPRF, Blake2sWithParameterBlock
+    from crypto_primitives_tpu_torch.ops.blake2s import blake2s
+
+    rng = np.random.default_rng(14)
+    for n in (0, 1, 63, 64, 65, 128, 129):
+        msgs = torch.from_numpy(rng.integers(0, 256, (300, n), dtype=np.uint8))
+        for key, size, salt, person in ((b"", 32, b"", b""), (b"key", 16, b"salt", b"person")):
+            got = blake2s(msgs.to(cuda), size, key, salt, person, device=cuda)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), blake2s(msgs, size, key, salt, person, device="cpu"))
+        assert bytes(got[0].cpu().numpy()) == hashlib.blake2s(msgs[0].numpy().tobytes(), digest_size=16, key=b"key",
+                                                               salt=b"salt", person=b"person").digest()
+    seeds, inputs = (torch.from_numpy(rng.integers(0, 256, (300, 32), dtype=np.uint8)) for _ in range(2))
+    assert torch.equal(Blake2sPRF.evaluate_batch(seeds.to(cuda), inputs.to(cuda), device=cuda).cpu(),
+                       Blake2sPRF.evaluate_batch(seeds, inputs, device="cpu"))
+    prf = Blake2sWithParameterBlock(salt=b"saltsalt", personalization=b"personal")
+    assert torch.equal(prf.evaluate_batch(seeds.to(cuda), device=cuda).cpu(), prf.evaluate_batch(seeds, device="cpu"))
+    com = Blake2sCommitment()
+    assert torch.equal(com.commit_batch(None, inputs.to(cuda), seeds.to(cuda), device=cuda).cpu(),
+                       com.commit_batch(None, inputs, seeds, device="cpu"))
+
+
+def _byte_circuits(device, seed):
+    """A batched Blake2s PRF circuit and a batched SHA-256 CRH circuit over 6
+    instances, each with the variable of its first digest bit."""
+    from crypto_primitives_tpu_torch.r1cs.batch import BatchConstraintSystem
+    from crypto_primitives_tpu_torch.r1cs.gadgets.blake2s import Blake2sPRFGadget
+    from crypto_primitives_tpu_torch.r1cs.gadgets.sha256 import Sha256CRHGadget
+    from crypto_primitives_tpu_torch.r1cs.vars import bytes_to_uint8s
+
+    rng = np.random.default_rng(seed)
+    seeds, msgs = rng.integers(0, 256, (2, 6, 32), dtype=np.uint8)
+    data = rng.integers(0, 256, (6, 55), dtype=np.uint8)
+    prf = BatchConstraintSystem(BLS12_381_FR, 6, device=device)
+    out = Blake2sPRFGadget.evaluate(prf, Blake2sPRFGadget.new_seed(prf, seeds), bytes_to_uint8s(prf, msgs))
+    sha = BatchConstraintSystem(BLS12_381_FR, 6, device=device)
+    dig = Sha256CRHGadget().evaluate(sha, bytes_to_uint8s(sha, data))
+    return [(prf, list(out.bytes[0].bits[0].fp.lc.terms)[0]), (sha, list(dig.bytes[0].bits[0].fp.lc.terms)[0])]
+
+
+def test_r1cs_checks_on_the_card_match_cpu(cuda):
+    """check_satisfied_device and both batched checks (the int64 small-domain
+    check with which_unsatisfied, and the Montgomery check at a chunk smaller
+    than the batch) on the card equal the same on the CPU, before and after a
+    tamper."""
+    from crypto_primitives_tpu_torch.r1cs import ConstraintSystem, FpVar
+    from crypto_primitives_tpu_torch.r1cs.batch import BatchConstraintSystem
+    from crypto_primitives_tpu_torch.r1cs.device_check import check_satisfied_device
+    from crypto_primitives_tpu_torch.r1cs.gadgets.blake2s import Blake2sPRFGadget
+    from crypto_primitives_tpu_torch.r1cs.gadgets.poseidon import PoseidonTwoToOneCRHGadget
+    from crypto_primitives_tpu_torch.r1cs.vars import bytes_to_uint8s
+
+    cs = ConstraintSystem(BLS12_381_FR)
+    out = Blake2sPRFGadget.evaluate(cs, Blake2sPRFGadget.new_seed(cs, bytes(range(32))),
+                                    bytes_to_uint8s(cs, bytes(range(32, 64))))
+    assert check_satisfied_device(cs, device=cuda) is check_satisfied_device(cs, device="cpu") is True
+    cs.assignments[list(out.bytes[3].bits[2].fp.lc.terms)[0]] ^= 1
+    assert check_satisfied_device(cs, device=cuda) is check_satisfied_device(cs, device="cpu") is False
+
+    for (card, k), (host, k2) in zip(_byte_circuits(cuda, 15), _byte_circuits("cpu", 15)):
+        assert k == k2
+        assert card.satisfied_per_instance().tolist() == host.satisfied_per_instance().tolist() == [True] * 6
+        card.assignments[k].v[4] ^= 1
+        host.assignments[k].v[4] ^= 1
+        ok = card.satisfied_per_instance()
+        assert ok.device.type == "cuda" and ok.tolist() == host.satisfied_per_instance().tolist()
+        assert ok.tolist() == [i != 4 for i in range(6)]
+        first = card.which_unsatisfied()
+        assert first.device.type == "cuda" and first.tolist() == host.which_unsatisfied().tolist()
+        assert first[4] >= 0
+
+    cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+    left, right = _fr_rows((6,), 16), _fr_rows((6,), 17)
+    results = []
+    for dev in (cuda, "cpu"):
+        bcs = BatchConstraintSystem(BLS12_381_FR, 6, device=dev)
+        o = PoseidonTwoToOneCRHGadget(cfg).compress(bcs, FpVar.new_witness(bcs, left), FpVar.new_witness(bcs, right))
+        before = bcs.satisfied_per_instance(chunk=4).tolist()
+        k = list(o.lc.terms)[0]
+        bcs.assignments[k] = bcs.assignments[k].clone()
+        bcs.assignments[k][3] = left[0].to(bcs.device)
+        results.append((o.value.cpu(), before, bcs.satisfied_per_instance(chunk=4).tolist(),
+                        bcs.satisfied_per_instance().tolist()))
+    (a_out, *a_checks), (b_out, *b_checks) = results
+    assert torch.equal(a_out, b_out) and a_checks == b_checks
+    assert a_checks == [[True] * 6, [i != 3 for i in range(6)], [i != 3 for i in range(6)]]
+
+    # host rows (a UInt32 word, negative centered values) in the Montgomery check
+    from crypto_primitives_tpu_torch.r1cs import UInt32
+    from crypto_primitives_tpu_torch.r1cs.batch import SmallWord
+
+    results = []
+    for dev in (cuda, "cpu"):
+        bcs = BatchConstraintSystem(BLS12_381_FR, 6, device=dev)
+        x = FpVar.new_witness(bcs, left)
+        w = UInt32.new_witness(bcs, np.arange(6, dtype=np.uint64) * 0x2FFFFFFF).to_fp()
+        n = FpVar.new_witness(bcs, SmallWord(np.asarray([-3, 5, -(2 ** 40), 0, 1, -1], np.int64), 2 ** 40))
+        out = (x * w) * n
+        ok = bcs.satisfied_per_instance(chunk=4).tolist()
+        bcs.assignments[list(n.lc.terms)[0]].v[2] += 1
+        results.append((out.value.cpu(), ok, bcs.satisfied_per_instance().tolist()))
+    assert torch.equal(results[0][0], results[1][0]) and results[0][1:] == results[1][1:]
+    assert results[0][1:] == ([True] * 6, [i != 2 for i in range(6)])

@@ -85,6 +85,12 @@ def test_entry_points_without_device_need_cuda():
     from crypto_primitives_tpu_torch.models.protocols import sumcheck_prove
     from crypto_primitives_tpu_torch.models.protocols.ipa_fold import ipa_fold_prove
     from crypto_primitives_tpu_torch.models.sponge.fiat_shamir import FiatShamir, fold_argument
+    from crypto_primitives_tpu_torch.models.commitment import Blake2sCommitment
+    from crypto_primitives_tpu_torch.models.prf import Blake2sPRF, Blake2sWithParameterBlock
+    from crypto_primitives_tpu_torch.ops.blake2s import blake2s
+    from crypto_primitives_tpu_torch.r1cs import ConstraintSystem
+    from crypto_primitives_tpu_torch.r1cs.batch import BatchConstraintSystem
+    from crypto_primitives_tpu_torch.r1cs.device_check import check_satisfied_device
 
     cfg = get_default_poseidon_parameters(FR, 2)
     leaves = np.zeros((4, 32), dtype=np.uint8)
@@ -118,6 +124,12 @@ def test_entry_points_without_device_need_cuda():
         lambda: fold_argument(cfg, [[1, 2], [3, 4]]),
         lambda: sumcheck_prove(cfg, torch.zeros((2, 4, 8), dtype=torch.int32)),
         lambda: ipa_fold_prove(JUBJUB, cfg, [JUBJUB.generator] * 2, [[1, 2]]),
+        lambda: blake2s(leaves),
+        lambda: Blake2sPRF.evaluate_batch(leaves, leaves),
+        lambda: Blake2sWithParameterBlock().evaluate_batch(leaves),
+        lambda: Blake2sCommitment().commit_batch(None, leaves, leaves),
+        lambda: BatchConstraintSystem(FR, 2),
+        lambda: check_satisfied_device(ConstraintSystem(FR)),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
