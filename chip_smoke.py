@@ -64,6 +64,31 @@ Phases (each prints a flushed line before and after, with its seconds):
      nonzeros), true and then false after the same flip; a torch.profiler
      trace around one evaluate_batch (utils.profiling.capture) holding its
      annotate span; each call's host synthesis and device check times;
+  10. the Merkle, curve and SNARK gadgets (run after phase 9, before phase 6),
+     each gadget's output held against the native result computed on the
+     card: 1024 Poseidon membership circuits (PathVar) over paths of phase
+     4's 2^20-leaf tree (depth 20, 5728 constraints), synthesised as one
+     trace and checked in Montgomery form: one instance given a wrong leaf
+     is false (and equal to verify_rows_batch, K1, on every instance) while
+     the system stays satisfied; with ok enforced it alone fails, at the
+     constraint which_unsatisfied names on the card and the scalar tier names
+     on the host; 256 SHA-256 byte-path circuits (BytePathVar) over an 8-leaf
+     tree (K3), the int64 small-domain check, one wrong root byte; the
+     Pedersen point path (PointPathVar, a 4-leaf JubJub tree with phase 5's
+     parameters, K4) through check_satisfied_device, true, then false with
+     the root input's y changed by one; on ed-on-bls12-377 (constraint field
+     its base field) ElGamalEncGadget against encrypt_batch (K4) and the
+     host encrypt, SchnorrRandomizePkGadget against randomize_public_key,
+     PedersenCRHGadget and PedersenCRHCompressorGadget against their
+     evaluate_batch rows (K4) and BoweHopwoodCRHGadget at phase 8's window
+     against its evaluate_batch row (K4), each through
+     check_satisfied_device; the MockLinSNARK verifier circuit, true and
+     false with a tampered proof; each call's host synthesis and device check
+     times.  Cuts, for its 60 s: the byte paths are of an 8-leaf tree, not a
+     2^20-leaf one (a depth-20 byte path is about 1.5 M constraints); the
+     Pedersen CRH and compressor gadgets run at JAX's test window 4 x 16, not
+     250 x 8 (over 2,000 bits the select chain's linear combinations grow by
+     one term a bit: millions of nonzeros);
   6. times: each kernel at its path's shape (its output there held on 4096
      random rows against the plain version), the plain version's time, and
      the bound the card sets; SHA-256's byte entry at 2^19 messages of 64
@@ -125,6 +150,22 @@ BLAKE_LENGTH_ROWS = 1024
 R1CS_BYTE_N = 1024  # the Blake2s PRF and SHA-256 CRH circuits
 R1CS_FIELD_N = 4096  # the Poseidon two-to-one circuit
 R1CS_TAMPERED = 517  # the instance whose digest bit is flipped
+# phase 10: the Poseidon membership circuits take paths of phase 4's 2^20-leaf
+# tree (depth 20, never cut); the SHA-256 byte paths are of an 8-leaf tree
+# (tests/test_r1cs_byte_merkle.py:118-121), cut from depth 20 for time: one
+# SHA-256 level is about 74,500 constraints, a depth-20 path about 1.5 M
+GADGET_PATHS = 1024
+BYTE_PATHS = 256
+BYTE_TREE_LEAVES = 8
+POINT_TREE_LEAVES = 4  # tests/test_merkle_pedersen.py:143-200: two 1024-bit compresses
+ELGAMAL_ROWS = 32  # encrypt_batch's fixed-base route, as phase 7's 2^14 rows take
+# the Pedersen CRH and compressor gadgets at JAX's test window
+# (tests/test_r1cs_curve_gadgets.py:31), cut from phase 5's 250 x 8: over 2,000
+# bits the select chain's linear combinations grow by one term a bit, so such a
+# circuit holds millions of nonzeros and its synthesis and check take seconds
+CURVE_WINDOW = (4, 16)
+SNARK_INPUTS = 3
+PHASE10_LIMIT_S = 60
 
 # Pinned BLS12-381 Fr sponge output: absorb [0, 1, 2], squeeze 3
 # (tests/test_poseidon.py:121-129, the reference's src/sponge/poseidon/mod.rs:381-404).
@@ -309,6 +350,280 @@ def drive(name: str, fn, needs):
 def affine_host(curve, rows):
     """(n, 2, W) Montgomery affine words -> host (x, y) tuples."""
     return [(int(x), int(y)) for x, y in curve.base.unpack(rows.cpu())]
+
+
+def gadget_phase(dev, cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, bh_inputs, launches, gen,
+                 n_paths=GADGET_PATHS, n_byte=BYTE_PATHS):
+    """Phase 10: the Merkle, curve and SNARK gadgets on ``dev``, each held
+    against the native result computed there (the reference's
+    ``native == gadget.value()``).  ``pedersen_tree`` is phase 5's (curve,
+    leaf and two-to-one parameters, windows); ``bh`` and its parameters are
+    phase 8's, with its inputs.  Returns the phase's (label, seconds) list."""
+    import numpy as np
+
+    from crypto_primitives_tpu_torch.models.crh import PedersenCRH, PoseidonCRH, Window
+    from crypto_primitives_tpu_torch.models.crh.injective_map import PedersenCRHCompressor
+    from crypto_primitives_tpu_torch.models.encryption import ElGamal
+    from crypto_primitives_tpu_torch.models.merkle_tree import Path
+    from crypto_primitives_tpu_torch.models.merkle_tree.device import pedersen_device_tree, sha256_device_tree
+    from crypto_primitives_tpu_torch.models.signature import Schnorr
+    from crypto_primitives_tpu_torch.ops.curves_known import ED_ON_BLS12_377
+    from crypto_primitives_tpu_torch.ops.field import FieldSpec
+    from crypto_primitives_tpu_torch.ops.sha256 import sha256
+    from crypto_primitives_tpu_torch.r1cs import ConstraintSystem, FpVar
+    from crypto_primitives_tpu_torch.r1cs.batch import BatchConstraintSystem
+    from crypto_primitives_tpu_torch.r1cs.device_check import check_satisfied_device
+    from crypto_primitives_tpu_torch.r1cs.gadgets.curve import TEAffineVar
+    from crypto_primitives_tpu_torch.r1cs.gadgets.elgamal import ElGamalEncGadget
+    from crypto_primitives_tpu_torch.r1cs.gadgets.merkle import BytePathVar, PathVar, PointPathVar
+    from crypto_primitives_tpu_torch.r1cs.gadgets.pedersen import (
+        BoweHopwoodCRHGadget,
+        PedersenCRHCompressorGadget,
+        PedersenCRHGadget,
+        PedersenTwoToOneCRHGadget,
+    )
+    from crypto_primitives_tpu_torch.r1cs.gadgets.poseidon import PoseidonCRHGadget, PoseidonTwoToOneCRHGadget
+    from crypto_primitives_tpu_torch.r1cs.gadgets.sha256 import DigestVar, Sha256CRHGadget, Sha256TwoToOneCRHGadget
+    from crypto_primitives_tpu_torch.r1cs.gadgets.signature import SchnorrRandomizePkGadget
+    from crypto_primitives_tpu_torch.r1cs.snark import BooleanInputVar
+    from crypto_primitives_tpu_torch.r1cs.snark_gadget import MockLinSNARK, MockLinSNARKGadget, MockProof, MockProofVar
+    from crypto_primitives_tpu_torch.r1cs.vars import bytes_to_uint8s
+
+    FR = cfg.field
+    summary = []
+
+    def timed(label, fn):
+        """Host clock around fn, ending in a synchronize."""
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        summary.append((label, dt))
+        return out, dt
+
+    def native(path, fn, needs):
+        """A batch twin, driven with the launch counts reset; its launches
+        go into the kernels line's totals."""
+        (out, counts), _ = timed(path, lambda: drive(path, fn, needs))
+        for k in needs:
+            launches[k] += counts[k]
+        return out
+
+    def checked(name, cs):
+        """check_satisfied_device on the scalar circuit; its verdict."""
+        torch.cuda.reset_peak_memory_stats()
+        ok, dt = timed(f"{name}: check_satisfied_device ({cs.num_constraints} constraints)",
+                       lambda: check_satisfied_device(cs, device=dev))
+        nnz = sum(len(lc.terms) for rows in (cs.a_rows, cs.b_rows, cs.c_rows) for lc in rows)
+        log(f"  {name}: {cs.num_constraints} constraints, {nnz} nonzeros, {cs.num_witness} witnesses; "
+            f"check_satisfied_device {ok} in {dt:.3f} s (peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
+        return ok
+
+    # -- Poseidon membership: n_paths paths of phase 4's tree, one tampered leaf
+    n_leaves = int(pos_tree.leaf_digests.shape[0])
+    bad = R1CS_TAMPERED % n_paths
+    idx = torch.randperm(n_leaves, generator=torch.Generator().manual_seed(SEED))[:n_paths].to(dev)
+
+    def native_paths():
+        leaf_sib, auth = pos_tree.proof_rows(idx)
+        vals = FR.unpack(torch.cat([leaf_sib.unsqueeze(1), auth], dim=1).cpu())  # one copy to the host
+        return leaf_sib, auth, [Path(int(v[0]), [int(x) for x in v[1:]], i) for v, i in zip(vals, idx.tolist())]
+
+    (leaf_sib, auth, paths), t_paths = timed(f"Poseidon paths: proof_rows of {n_paths} leaves, one copy to the host",
+                                             native_paths)
+    leaf_rows = pos_leaves[idx].clone()
+    leaf_rows[bad] = pos_leaves[(idx[bad] + 1) % n_leaves]  # a wrong leaf in one instance
+    want = [i != bad for i in range(n_paths)]
+
+    def synth_poseidon():
+        bcs = BatchConstraintSystem(FR, n_paths, device=dev)
+        pv = PathVar.new_witness_batch(bcs, paths)
+        root = FpVar.new_input(bcs, pos_tree.root_row().expand(n_paths, -1))
+        ok = pv.verify_membership(PoseidonCRHGadget(cfg), PoseidonTwoToOneCRHGadget(cfg), root,
+                                  [FpVar.new_witness(bcs, leaf_rows)])
+        return bcs, ok
+
+    (bcs, ok), t_synth = timed(f"Poseidon membership: synthesis of {n_paths} instances (the field tier on the card)",
+                               synth_poseidon)
+    native_ok = native(f"Poseidon membership: the native check of {n_paths} paths (verify_rows_batch)",
+                       lambda: pos_tree.verify_rows_batch(
+                           pos_tree.root_row(), PoseidonCRH(FR).evaluate_batch(cfg, leaf_rows.unsqueeze(-2), device=dev),
+                           idx, leaf_sib, auth),
+                       ["poseidon_permute"])
+    require(ok.value.tolist() == native_ok.tolist() == want,
+            f"Poseidon membership: ok == the native check on every instance; instance {bad} alone false")
+    torch.cuda.reset_peak_memory_stats()
+    sat, t_check = timed("Poseidon membership: satisfied_per_instance (the Montgomery check)",
+                         lambda: bcs.satisfied_per_instance())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(bool(sat.all()), "Poseidon membership: every instance satisfied (Ok(false) for the wrong leaf)")
+    ok.fp.enforce_equal(FpVar.constant(bcs, 1))
+    first, _ = timed("Poseidon membership: which_unsatisfied with ok enforced (the Montgomery check)",
+                     lambda: bcs.which_unsatisfied())
+    require((first < 0).tolist() == want, f"Poseidon membership: with ok enforced, instance {bad} alone fails")
+
+    def scalar_poseidon():
+        scs = ConstraintSystem(FR)
+        sok = PathVar.new_witness(scs, paths[bad]).verify_membership(
+            PoseidonCRHGadget(cfg), PoseidonTwoToOneCRHGadget(cfg), FpVar.new_input(scs, pos_tree.root()),
+            [FpVar.new_witness(scs, int(FR.unpack(leaf_rows[bad].cpu())))])
+        sok.fp.enforce_equal(FpVar.constant(scs, 1))
+        return scs, scs.which_unsatisfied()
+
+    (scs, host_first), _ = timed(f"Poseidon membership: instance {bad} on the scalar tier and its which_unsatisfied",
+                                 scalar_poseidon)
+    require((scs.num_constraints, scs.num_witness) == (bcs.num_constraints, bcs.num_witness),
+            "Poseidon membership: constraint and witness counts == the scalar tier's")
+    require(first.tolist() == [-1 if i != bad else host_first for i in range(n_paths)],
+            f"Poseidon membership: which_unsatisfied names constraint {host_first} for instance {bad}, as the host does")
+    log(f"  Poseidon membership, depth {len(paths[0].auth_path) + 1}: {bcs.num_constraints} constraints, "
+        f"{bcs.num_witness} witnesses, {n_paths} instances; paths {t_paths:.3f} s, synthesis {t_synth:.3f} s, "
+        f"Montgomery check {t_check:.3f} s (peak {peak:.2f} GiB); instance {bad} (a wrong leaf) alone false, and "
+        f"alone failing at constraint {host_first} once ok is enforced, on the card and the host")
+    del bcs, ok, first
+
+    # -- SHA-256 byte membership: n_byte paths of an 8-leaf tree, one wrong root byte
+    sleaves = torch.randint(0, 256, (BYTE_TREE_LEAVES, 32), dtype=torch.uint8, device=dev, generator=gen)
+    stree = native("SHA-256 tree of 8 leaves: build", lambda: sha256_device_tree(sleaves, device=dev),
+                   ["sha256_compress"])
+    sidx = torch.arange(n_byte, device=dev) % BYTE_TREE_LEAVES
+    s_sib, s_auth = stree.proof_rows(sidx)
+    sib_np, auth_np, sidx_np = s_sib.cpu().numpy(), s_auth.cpu().numpy(), sidx.tolist()
+    spaths = [Path(sib_np[i].tobytes(), [a.tobytes() for a in auth_np[i]], sidx_np[i]) for i in range(n_byte)]
+    sbad = bad % n_byte
+    roots = np.tile(np.frombuffer(stree.root(), dtype=np.uint8), (n_byte, 1))
+    roots[sbad, 0] ^= 1
+    sleaves_np = sleaves.cpu().numpy()[sidx_np]
+
+    def synth_sha():
+        bcs = BatchConstraintSystem(FR, n_byte, device=dev)
+        pv = BytePathVar.new_witness_batch(bcs, spaths)
+        ok = pv.verify_membership(Sha256CRHGadget(), Sha256TwoToOneCRHGadget(),
+                                  DigestVar(bcs, bytes_to_uint8s(bcs, roots, "input")),
+                                  bytes_to_uint8s(bcs, sleaves_np, "witness"))
+        return bcs, ok
+
+    (bcs, ok), t_synth = timed(f"SHA-256 byte membership: host synthesis of {n_byte} instances", synth_sha)
+    native_ok = native(f"SHA-256 byte membership: the native check of {n_byte} paths (verify_rows_batch)",
+                       lambda: stree.verify_rows_batch(stree.root_row(), sha256(sleaves[sidx], device=dev), sidx,
+                                                       s_sib, s_auth),
+                       ["sha256_compress"])
+    swant = [i != sbad for i in range(n_byte)]
+    require(bool(native_ok.all()) and np.asarray(ok.value).tolist() == swant,
+            f"SHA-256 byte membership: every native path verifies; ok false for instance {sbad} (a wrong root byte) "
+            f"alone")
+    sat, t_first = timed("SHA-256 byte membership: satisfied_per_instance (int64 small-domain check; first)",
+                         lambda: bcs.satisfied_per_instance())
+    require(bool(sat.all()), "SHA-256 byte membership: every instance satisfied (Ok(false) for the wrong root)")
+    ok.fp.enforce_equal(FpVar.constant(bcs, 1))
+    per, t_check = timed("SHA-256 byte membership: satisfied_per_instance with ok enforced",
+                         lambda: bcs.satisfied_per_instance())
+    require(per.tolist() == swant, f"SHA-256 byte membership: with ok enforced, instance {sbad} alone fails")
+    log(f"  SHA-256 byte membership, {BYTE_TREE_LEAVES}-leaf tree: {bcs.num_constraints} constraints, "
+        f"{bcs.num_witness} witnesses, {n_byte} instances; synthesis {t_synth:.3f} s, small-domain check "
+        f"{t_first:.3f} s first and {t_check:.3f} s with ok enforced; instance {sbad} alone false and alone failing")
+    del bcs, ok, per
+
+    # -- the Pedersen point path (scalar): a 4-leaf JubJub tree with phase 5's parameters
+    curve, leaf_params, two_params, leaf_window, two_window = pedersen_tree
+    pleaves = torch.randint(0, 256, (POINT_TREE_LEAVES, 8), dtype=torch.uint8, device=dev, generator=gen)
+    ptree = native(f"Pedersen tree of {POINT_TREE_LEAVES} leaves over JubJub: build",
+                   lambda: pedersen_device_tree(curve, leaf_params, two_params, leaf_window, two_window, pleaves,
+                                                device=dev),
+                   ["msm_te"])
+    proot, pindex = ptree.root(), POINT_TREE_LEAVES - 1
+
+    def synth_point():
+        cs = ConstraintSystem(curve.base)
+        pv = PointPathVar.new_witness(cs, curve, ptree.generate_proof(pindex))
+        ok = pv.verify_membership(leaf_params, two_params, PedersenCRHGadget(curve, leaf_window),
+                                  PedersenTwoToOneCRHGadget(curve, two_window), TEAffineVar.new_input(cs, curve, proot),
+                                  bytes_to_uint8s(cs, pleaves[pindex].cpu().numpy().tobytes(), "witness"))
+        ok.fp.enforce_equal(FpVar.constant(cs, 1))
+        return cs, ok
+
+    (cs, ok), _ = timed("Pedersen point path: host synthesis", synth_point)
+    require(ok.value is True and checked("Pedersen point path", cs) is True,
+            "Pedersen point path: membership true and the circuit satisfied on the card")
+    y_input = cs._instance_vars[1]  # the root input: x, then y
+    cs.assignments[y_input] = (cs.assignments[y_input] + 1) % curve.base.p
+    require(checked("Pedersen point path, the root's y + 1", cs) is False,
+            "Pedersen point path: the root input's y changed by one fails on the card")
+
+    # -- the curve gadgets against their batch twins on ed-on-bls12-377
+    ed = ED_ON_BLS12_377
+    crng = random.Random(SEED + 10)
+    eg = ElGamal(ed)
+    eparams = eg.setup(crng)
+    epk, _ = eg.keygen(eparams, crng)
+    msgs = [ed.rand_point(crng) for _ in range(ELGAMAL_ROWS)]
+    rs = [eg.rand_randomness(crng) for _ in range(ELGAMAL_ROWS)]
+    cts = native(f"ElGamal encrypt_batch, {ELGAMAL_ROWS} messages", lambda: eg.encrypt_batch(eparams, epk, msgs, rs,
+                                                                                             device=dev),
+                 ["msm_te"])
+    cs = ConstraintSystem(ed.base)
+    g = ElGamalEncGadget(ed)
+    out, _ = timed("ElGamalEncGadget: host synthesis", lambda: g.encrypt(
+        cs, eparams, TEAffineVar.new_witness(cs, ed, msgs[0]), g.randomness_bits(cs, rs[0]),
+        TEAffineVar.new_witness(cs, ed, epk)))
+    require(out.value == tuple(cts[0]) == eg.encrypt(eparams, epk, msgs[0], rs[0]),
+            "ElGamalEncGadget == encrypt_batch's row 0 == the host encrypt")
+    require(checked("ElGamalEncGadget", cs) is True, "ElGamalEncGadget: satisfied on the card")
+
+    scheme = Schnorr(ed)
+    sparams = scheme.setup(crng)
+    spk, _ = scheme.keygen(sparams, crng)
+    randomness = bytes(crng.randrange(256) for _ in range(32))
+    cs = ConstraintSystem(ed.base)
+    out, _ = timed("SchnorrRandomizePkGadget: host synthesis", lambda: SchnorrRandomizePkGadget(ed).randomize(
+        cs, sparams, TEAffineVar.new_witness(cs, ed, spk), bytes_to_uint8s(cs, randomness)))
+    require(out.value == scheme.randomize_public_key(sparams, spk, randomness),
+            "SchnorrRandomizePkGadget == the host randomize_public_key")
+    require(checked("SchnorrRandomizePkGadget", cs) is True, "SchnorrRandomizePkGadget: satisfied on the card")
+
+    window = Window(*CURVE_WINDOW)
+    crh, comp = PedersenCRH(ed, window), PedersenCRHCompressor(ed, window)
+    cparams = crh.setup(crng)
+    inputs = torch.randint(0, 256, (SAMPLE, window.window_size * window.num_windows // 8), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    digests = native(f"Pedersen CRH evaluate_batch, window {CURVE_WINDOW}, {SAMPLE} rows",
+                     lambda: crh.evaluate_batch(cparams, inputs, device=dev), ["msm_te"])
+    xs = native(f"PedersenCRHCompressor evaluate_batch, window {CURVE_WINDOW}, {SAMPLE} rows",
+                lambda: comp.evaluate_batch(cparams, inputs, device=dev), ["msm_te"])
+    bh_xs = native(f"Bowe-Hopwood CRH evaluate_batch, window {BH_WINDOW}, {SAMPLE} rows",
+                   lambda: bh.evaluate_batch(bh_params, bh_inputs[:SAMPLE], device=dev), ["msm_te"])
+    row = inputs[0].cpu().numpy().tobytes()
+    for name, gadget, want_row in (
+        ("PedersenCRHGadget", lambda cs: PedersenCRHGadget(ed, window).evaluate(cs, cparams, bytes_to_uint8s(cs, row)),
+         affine_host(ed, digests[:1])[0]),
+        ("PedersenCRHCompressorGadget", lambda cs: PedersenCRHCompressorGadget(ed, window).evaluate(
+            cs, cparams, bytes_to_uint8s(cs, row)), int(ed.base.unpack(xs[0].cpu()))),
+        ("BoweHopwoodCRHGadget", lambda cs: BoweHopwoodCRHGadget(ed, Window(*BH_WINDOW)).evaluate(
+            cs, bh_params, bytes_to_uint8s(cs, bh_inputs[0].cpu().numpy().tobytes())),
+         int(ed.base.unpack(bh_xs[0].cpu()))),
+    ):
+        cs = ConstraintSystem(ed.base)
+        out, _ = timed(f"{name}: host synthesis", lambda: gadget(cs))
+        require(out.value == want_row, f"{name} == its batch twin's row 0")
+        require(checked(name, cs) is True, f"{name}: satisfied on the card")
+
+    # -- the MockLinSNARK verifier circuit over BLS12-381 Fr
+    f = FieldSpec("m61", 2 ** 61 - 1)
+    snark = MockLinSNARK(f)
+    srng = random.Random(SEED + 11)
+    pk, vk = snark.circuit_specific_setup(SNARK_INPUTS, srng)
+    x = [srng.randrange(f.p) for _ in range(SNARK_INPUTS)]
+    proof = snark.prove(pk, x)
+    for tampered in (False, True):
+        p = MockProof((proof.s + 1) % f.p) if tampered else proof
+        cs = ConstraintSystem(FR)
+        verdict = MockLinSNARKGadget.verify(MockLinSNARKGadget.VerifyingKeyVar.new_variable(cs, vk),
+                                            BooleanInputVar.new_input(cs, x, f), MockProofVar.new_variable(cs, p, f=f))
+        name = f"MockLinSNARKGadget verify, {SNARK_INPUTS} inputs{', a tampered proof' if tampered else ''}"
+        require(verdict.value is (not tampered) and snark.verify(vk, x, p) is (not tampered),
+                f"{name}: the circuit's verdict == the native verify")
+        require(checked(name, cs) is True, f"{name}: satisfied on the card")
+    return summary
 
 
 def main() -> int:
@@ -571,6 +886,7 @@ def main() -> int:
         log(f"  sha256 root {host_root.hex()} == hashlib build ({time.time() - t:.2f} s on the host)")
 
         pleaves = random_elements(FR, (LEAVES,), gen)
+        pos_leaves = pleaves  # phase 10 proves membership of these leaves
         pos_tree, counts = drive("Poseidon tree: build",
                                  lambda: poseidon_device_tree(FR, cfg, pleaves, device="cuda"),
                                  ["poseidon_permute"])
@@ -1243,6 +1559,15 @@ def main() -> int:
         log("  phase 9 calls (host clock, ending in a synchronize):")
         for label, dt in summary9:
             log(f"    {label}: {dt:.3f} s")
+
+    with Phase("phase 10: the Merkle, curve and SNARK gadgets on the card") as phase:
+        summary10 = gadget_phase("cuda", cfg, pos_tree, pos_leaves,
+                                 (JUBJUB, leaf_params, two_params, leaf_window, two_window),
+                                 bh, bh_params, bh_inputs, launches, gen)
+        log("  phase 10 calls (host clock, ending in a synchronize):")
+        for label, dt in summary10:
+            log(f"    {label}: {dt:.3f} s")
+        log(f"  phase 10: {time.time() - phase.t:.2f} s (limit {PHASE10_LIMIT_S})")
 
     with Phase("phase 6: times"):
         half = LEAVES // 2

@@ -17,7 +17,11 @@ the computation over circuit variables).  The reference builds on external
     for the whole constraint matrix in Montgomery form, in torch;
   * :mod:`batch` — N instances synthesised as one trace, checked on the
     card (exactly in int64 for byte circuits, in Montgomery form for field
-    circuits).
+    circuits);
+  * :mod:`snark` and :mod:`snark_gadget` — SNARK public-input packing
+    across fields and the verify-a-SNARK-in-a-circuit protocol, with the
+    ``MockLinSNARK`` test double;
+  * :mod:`gadgets` — the gadget twin of every primitive.
 
 Synthesis is host Python, the port's own copy of the JAX package's, so the
 constraint and witness counts are the same.

@@ -42,7 +42,7 @@ from crypto_primitives_tpu_torch.r1cs.device_check import _pack_matrix, rows_eva
 # Device memory the checks may fill at once with their largest intermediate:
 # the plain tier's int64 digit products of a Montgomery product ((2W)^2 of
 # them per element, 2 KiB at W = 8) or the int64 products of the small check.
-CHUNK_BYTES = 1 << 30
+CHUNK_BYTES = 1 << 32
 
 _SMALL_LIMIT = 1 << 62  # int64-safe magnitude ceiling
 
@@ -195,6 +195,28 @@ class BatchConstraintSystem(ConstraintSystem):
                 return self._small(a.v * b.v)
         return ff.mont_mul(self.field, self._promote(a), self._promote(b))
 
+    def v_mul_many(self, a, b):
+        """One Montgomery product for all pairs when every value is on the
+        device; SmallWord rows keep v_mul's small-domain path."""
+        if all(isinstance(v, torch.Tensor) for v in (*a, *b)):
+            return list(ff.mont_mul(self.field, torch.stack(a), torch.stack(b)).unbind(0))
+        return super().v_mul_many(a, b)
+
+    def v_affine(self, vals, rows, consts):
+        """One Montgomery dot product for every row, over all instances (the
+        plain tier's ``mont_dot_digits``, one reduction a row), where the
+        scalar steps would take one product a coefficient and one addition
+        a term."""
+        if all(_is_int(v) for v in vals):
+            return super().v_affine([int(v) for v in vals], rows, consts)
+        spec = self.field
+        x = ff.to_digits(torch.stack([self._promote(v) for v in vals], dim=-2))  # (N, K, 2W)
+        m = ff.to_digits(torch.from_numpy(spec.pack(rows)).to(self.device))  # (R, K, 2W): c R
+        out = ff.from_digits(ff.mont_dot_digits(spec, m.unsqueeze(1), x))  # (R, N, W)
+        if any(k % spec.p for k in consts):
+            out = ff.add(spec, out, torch.from_numpy(spec.pack(consts)).to(self.device).unsqueeze(1))
+        return list(out.unbind(0))
+
     def v_inv0(self, a):
         if _is_int(a):
             return super().v_inv0(int(a))
@@ -328,44 +350,44 @@ class BatchConstraintSystem(ConstraintSystem):
     # -- the small-domain check (byte circuits) --
 
     def _small_check_data(self):
-        """The centered COO triples of the exact-int64 check, or None when a
-        value, coefficient, row bound or product bound exceeds the int64
-        budget.  Soundness: with every LC evaluation |a|, |b|, |c| < 2^55 and
-        |a * b| < 2^62 << p, a * b == c (mod p) holds iff it holds over the
-        integers, so no Montgomery arithmetic is needed.  Byte circuits
-        (SHA-256, Blake2s: booleanity, xor, and, word packing) always
-        qualify; field circuits take the Montgomery check."""
+        """(the centered COO triples of the exact-int64 check, the (V, N)
+        int64 centered values), or None when a value, coefficient, row bound
+        or product bound exceeds the int64 budget.  Soundness: with every LC
+        evaluation |a|, |b|, |c| < 2^55 and |a * b| < 2^62 << p, a * b == c
+        (mod p) holds iff it holds over the integers, so no Montgomery
+        arithmetic is needed.  Byte circuits (SHA-256, Blake2s: booleanity,
+        xor, and, word packing) always qualify; field circuits take the
+        Montgomery check."""
         LIM_V = 1 << 40  # value / coefficient magnitude budget
         LIM_R = 1 << 55  # per-row LC bound
-        vmax = np.empty(len(self.assignments), np.float64)
+        rows = np.empty((len(self.assignments), self.batch), np.int64)
         for i, v in enumerate(self.assignments):
             if isinstance(v, SmallWord):
-                m = int(np.abs(v.v).max(initial=0))
+                rows[i] = v.v
             elif _is_int(v):
-                m = abs(self._centered(int(v)))
+                c = self._centered(int(v))
+                if abs(c) >= LIM_V:
+                    return None
+                rows[i] = c
             else:
                 return None
-            if m >= LIM_V:
-                return None
-            vmax[i] = float(m)
+        vmax = np.abs(rows).max(axis=1, initial=0).astype(np.float64)
+        if (vmax >= LIM_V).any():
+            return None
         # centered COO coefficients do not depend on the values: cached per
-        # constraint count (centering ~nnz coefficients in Python is the
-        # costly part); the value bounds are checked again on every call, so
-        # a tampered assignment can never overflow int64 unseen
+        # constraint count (to_coo and the centering are the costly part);
+        # the value bounds are checked again on every call, so a tampered
+        # assignment can never overflow int64 unseen
         if self._small_coo is None or self._small_coo_n != self.num_constraints:
             coo = self.to_coo()
             cached = []
             for name in "abc":
                 ri, ci, coeffs = coo[name]
-                cc = np.empty(len(coeffs), np.int64)
-                for j, c in enumerate(coeffs):
-                    cen = self._centered(int(c))
-                    if abs(cen) >= LIM_V:
-                        cached = False
-                        break
-                    cc[j] = cen
-                if cached is False:
+                centered = {c: self._centered(int(c)) for c in set(coeffs)}
+                if any(abs(c) >= LIM_V for c in centered.values()):
+                    cached = False
                     break
+                cc = np.fromiter(map(centered.__getitem__, coeffs), np.int64, len(coeffs))
                 cached.append((ri.astype(np.int64), ci.astype(np.int64), cc))
             self._small_coo, self._small_coo_n = cached, self.num_constraints
         if self._small_coo is False:
@@ -380,33 +402,23 @@ class BatchConstraintSystem(ConstraintSystem):
             bounds.append(rb)
         if self.num_constraints and (bounds[0] * bounds[1]).max() >= float(1 << 61):
             return None
-        return tuple(self._small_coo)
-
-    def _small_device(self, sd):
-        """The centered COO triples as int64 tensors on the device, cached
-        per constraint count."""
-        key = ("small", self.num_constraints)
-        if key not in self._device_coo:
-            self._device_coo[key] = tuple(
-                tuple(torch.from_numpy(x).to(self.device) for x in tri) for tri in sd
-            )
-        return self._device_coo[key]
-
-    def _small_z(self) -> torch.Tensor:
-        """(V, N) int64 centered values on the device."""
-        rows = np.empty((len(self.assignments), self.batch), np.int64)
-        for i, v in enumerate(self.assignments):
-            rows[i] = v.v if isinstance(v, SmallWord) else self._centered(int(v))
-        return torch.from_numpy(rows).to(self.device)
+        return tuple(self._small_coo), rows
 
     def _small_eval(self, sd, chunk):
         """Yield (start, (n, chunk) bool: a * b == c per constraint) over
-        chunks of instances."""
-        tris = self._small_device(sd)
-        z = self._small_z()
+        chunks of instances, from ``_small_check_data``'s result.  The
+        centered COO triples go to the device once per constraint count."""
+        triples, rows = sd
+        key = ("small", self.num_constraints)
+        if key not in self._device_coo:
+            self._device_coo[key] = tuple(
+                tuple(torch.from_numpy(x).to(self.device) for x in tri) for tri in triples
+            )
+        tris = self._device_coo[key]
+        z = torch.from_numpy(rows).to(self.device)
         n = self.num_constraints
         if chunk is None:
-            nnz = max(1, max(len(t[0]) for t in sd))
+            nnz = max(1, max(len(t[0]) for t in triples))
             chunk = max(1, min(self.batch, CHUNK_BYTES // (16 * nnz)))
 
         def ev(tri, zc):
@@ -422,20 +434,17 @@ class BatchConstraintSystem(ConstraintSystem):
     def which_unsatisfied(self, instance: int = None):
         """Each instance's first failing constraint, as an (N,) int64 tensor
         on the device (-1: satisfied); or one instance's index, or None, when
-        ``instance`` is given (the scalar tier's debugging twin).
-        Small-domain circuits only: re-synthesise a failing field-circuit
-        instance on the scalar tier."""
-        sd = self._small_check_data()
-        if sd is None:
-            raise NotImplementedError(
-                "per-constraint debugging needs the small-domain check; "
-                "re-synthesize the failing instance on the scalar tier"
-            )
+        ``instance`` is given (the scalar tier's debugging twin).  Byte
+        circuits take the small-domain check, field circuits the Montgomery
+        check (where the JAX package raises NotImplementedError)."""
+        n = self.num_constraints
         firsts = []
-        for _, ok in self._small_eval(sd, None):
-            bad = ~ok
-            firsts.append(torch.where(bad.any(dim=0), bad.to(torch.uint8).argmax(dim=0), -1))
-        out = torch.cat(firsts) if firsts else torch.zeros((0,), dtype=torch.int64, device=self.device)
+        for _, ok in self._evaluate(None):
+            # a failing sentinel row n below the constraints: argmax is n where all pass
+            bad = torch.cat([~ok, ok.new_ones((1, ok.shape[1]))])
+            first = bad.to(torch.uint8).argmax(dim=0)
+            firsts.append(torch.where(first < n, first, -1))
+        out = torch.cat(firsts)
         if instance is None:
             return out
         idx = int(out[instance])
@@ -456,25 +465,31 @@ class BatchConstraintSystem(ConstraintSystem):
             self._device_coo[key] = [_pack_matrix(self.field, *coo[m], self.device) for m in "abc"]
         return self._device_coo[key]
 
-    def satisfied_per_instance(self, chunk: int = None) -> torch.Tensor:
-        """(N,) bool on the device.  Byte circuits take the exact int64
-        small-domain check; the others the Montgomery check, over chunks of
-        ``chunk`` instances (by default as many as CHUNK_BYTES holds)."""
-        sd = self._small_check_data()
-        if sd is not None:
-            return torch.cat([ok.all(dim=0) for _, ok in self._small_eval(sd, chunk)])
+    def _mont_eval(self, chunk):
+        """Yield (start, (n, chunk) bool: a * b == c per constraint) over
+        chunks of instances, in Montgomery form."""
         spec, n = self.field, self.num_constraints
-        if n == 0:
-            return torch.ones((self.batch,), dtype=torch.bool, device=self.device)
         z = self.stack_assignments()  # (V, N, W)
         mats = self._mont_device()
         if chunk is None:
             per_instance = max(m[2].shape[0] * _mont_bytes(spec) + m[1].shape[0] * 16 * spec.num_words
                                for m in mats)
             chunk = max(1, min(self.batch, CHUNK_BYTES // per_instance))
-        outs = []
         for s in range(0, self.batch, chunk):
             zc = z[:, s : s + chunk]
             a, b, c = (rows_eval(spec, m, zc, n) for m in mats)
-            outs.append((ff.mont_mul(spec, a, b) == c).all(dim=-1).all(dim=0))
-        return torch.cat(outs)
+            yield s, (ff.mont_mul(spec, a, b) == c).all(dim=-1)
+
+    def _evaluate(self, chunk):
+        """The per-constraint verdicts of the small-domain check where it
+        applies, else of the Montgomery check."""
+        if self.num_constraints == 0:
+            return iter([(0, torch.ones((0, self.batch), dtype=torch.bool, device=self.device))])
+        sd = self._small_check_data()
+        return self._small_eval(sd, chunk) if sd is not None else self._mont_eval(chunk)
+
+    def satisfied_per_instance(self, chunk: int = None) -> torch.Tensor:
+        """(N,) bool on the device.  Byte circuits take the exact int64
+        small-domain check; the others the Montgomery check, over chunks of
+        ``chunk`` instances (by default as many as CHUNK_BYTES holds)."""
+        return torch.cat([ok.all(dim=0) for _, ok in self._evaluate(chunk)])

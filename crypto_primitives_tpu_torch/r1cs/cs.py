@@ -107,6 +107,17 @@ class ConstraintSystem:
     def v_mul(self, a, b):
         return (a * b) % self.field.p
 
+    def v_mul_many(self, a, b):
+        """Element-wise products of two lists of values."""
+        return [self.v_mul(x, y) for x, y in zip(a, b)]
+
+    def v_affine(self, vals, rows, consts):
+        """[sum_j rows[r][j] * vals[j] + consts[r] for every row r]: the
+        values of a linear layer (a sponge's MDS matrix and round constants)
+        in one step, where the gadget builds its linear combinations."""
+        p = self.field.p
+        return [(sum(c * v for c, v in zip(row, vals)) + k) % p for row, k in zip(rows, consts)]
+
     def v_inv0(self, a):
         """Inverse, or 0 for a == 0 (the is_eq witness convention)."""
         a %= self.field.p
@@ -191,19 +202,17 @@ class ConstraintSystem:
     def to_coo(self):
         """Flatten (A, B, C) into COO triples for the device checker:
         returns dict with rows/cols/coeffs per matrix plus the assignment."""
+        import itertools
+
         import numpy as np
 
         out = {}
         for name, rows in (("a", self.a_rows), ("b", self.b_rows), ("c", self.c_rows)):
-            ri, ci, vv = [], [], []
-            for i, lc in enumerate(rows):
-                for v, c in lc.terms.items():
-                    ri.append(i)
-                    ci.append(v)
-                    vv.append(c)
+            lens = np.fromiter((len(lc.terms) for lc in rows), np.int64, len(rows))
+            nnz = int(lens.sum())
             out[name] = (
-                np.asarray(ri, dtype=np.int32),
-                np.asarray(ci, dtype=np.int32),
-                vv,
+                np.repeat(np.arange(len(rows), dtype=np.int32), lens),
+                np.fromiter(itertools.chain.from_iterable(lc.terms for lc in rows), np.int32, nnz),
+                list(itertools.chain.from_iterable(lc.terms.values() for lc in rows)),
             )
         return out

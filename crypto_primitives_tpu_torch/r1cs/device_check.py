@@ -27,16 +27,9 @@ from crypto_primitives_tpu_torch.ops import field as ff
 
 def _coeff_ids(coeffs):
     """coefficient list -> (distinct values, (nnz,) int32 index)."""
-    uniq: dict = {}
-    idx = np.empty(len(coeffs), np.int32)
-    vals = []
-    for i, c in enumerate(coeffs):
-        j = uniq.get(c)
-        if j is None:
-            j = uniq[c] = len(vals)
-            vals.append(c)
-        idx[i] = j
-    return vals, idx
+    vals = list(set(coeffs))
+    ids = {c: i for i, c in enumerate(vals)}
+    return vals, np.fromiter(map(ids.__getitem__, coeffs), np.int32, len(coeffs))
 
 
 def _pack_matrix(spec, rows_idx, cols_idx, coeffs, device):

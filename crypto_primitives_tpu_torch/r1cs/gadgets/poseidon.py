@@ -13,7 +13,7 @@ from __future__ import annotations
 from typing import List
 
 from crypto_primitives_tpu_torch.models.sponge.poseidon import PoseidonConfig, PoseidonSponge
-from crypto_primitives_tpu_torch.r1cs.cs import ConstraintSystem
+from crypto_primitives_tpu_torch.r1cs.cs import ConstraintSystem, LinearCombination
 from crypto_primitives_tpu_torch.r1cs.vars import FpVar
 
 
@@ -31,33 +31,33 @@ class PoseidonSpongeVar:
         self.index = 0
 
     def _permute(self):
-        cfg = self.config
+        cs, cfg = self.cs, self.config
+        p = cs.field.p
         rf2 = cfg.full_rounds // 2
-        state = list(self.state)
-
-        def rnd(i: int, full: bool):
-            nonlocal state
-            # ark: constant addition (free)
-            state = [s.add_constant(a) for s, a in zip(state, cfg.ark[i])]
-            if full:
-                state = [s.pow_by_constant(cfg.alpha) for s in state]
+        n_rounds = cfg.full_rounds + cfg.partial_rounds
+        # ark: constant addition (free)
+        state = [s.add_constant(a) for s, a in zip(self.state, cfg.ark[0])]
+        for i in range(n_rounds):
+            if i < rf2 or i >= rf2 + cfg.partial_rounds:
+                state = FpVar.pow_by_constant_many(state, cfg.alpha)
             else:
                 state[0] = state[0].pow_by_constant(cfg.alpha)
-            # MDS: linear combination (free)
+            # MDS, then the next round's constants: linear combinations (free),
+            # built as the scale / add / add_constant steps build them, their
+            # values in one v_affine step
+            last = i + 1 == n_rounds
+            ark = [0] * cfg.t if last else cfg.ark[i + 1]
+            vals = cs.v_affine([s.value for s in state], cfg.mds, ark)
+            const = all(s.const for s in state)
             new = []
-            for row in cfg.mds:
-                acc = state[0].scale(row[0])
+            for row, k, v in zip(cfg.mds, ark, vals):
+                lc = state[0].lc.scale(row[0], p)
                 for j in range(1, cfg.t):
-                    acc = acc + state[j].scale(row[j])
-                new.append(acc)
+                    lc = lc.add(state[j].lc.scale(row[j], p), p)
+                if not last:
+                    lc = lc.add(LinearCombination.constant(k, p), p)
+                new.append(FpVar(cs, lc, v, const))
             state = new
-
-        for i in range(rf2):
-            rnd(i, True)
-        for i in range(rf2, rf2 + cfg.partial_rounds):
-            rnd(i, False)
-        for i in range(rf2 + cfg.partial_rounds, cfg.partial_rounds + cfg.full_rounds):
-            rnd(i, True)
         self.state = state
 
     def _absorb_internal(self, rate_start: int, elems: List[FpVar]):

@@ -84,9 +84,13 @@ class FpVar:
             return other.scale(self.value)
         if other.const:
             return self.scale(other.value)
-        prod = cs.v_mul(self.value, other.value)
-        out = FpVar.new_witness(cs, prod)
-        cs.enforce(self.lc, other.lc, out.lc)
+        return self._product(other, cs.v_mul(self.value, other.value))
+
+    def _product(self, other: "FpVar", value) -> "FpVar":
+        """self * other for variable operands, whose product's value is
+        ``value``: one witness, one constraint."""
+        out = FpVar.new_witness(self.cs, value)
+        self.cs.enforce(self.lc, other.lc, out.lc)
         return out
 
     def square(self) -> "FpVar":
@@ -104,6 +108,40 @@ class FpVar:
             if b == "1":
                 acc = acc * self
         return acc
+
+    @staticmethod
+    def pow_by_constant_many(xs: Sequence["FpVar"], e: int) -> List["FpVar"]:
+        """``[x.pow_by_constant(e) for x in xs]``: the same variables and
+        constraints in the same order, with each square-and-multiply step's
+        values computed for every variable x at once (``cs.v_mul_many``)."""
+        if e < 1:
+            raise ValueError("exponent must be >= 1")
+        var = [x for x in xs if not x.const]
+        if not var:
+            return [x.pow_by_constant(e) for x in xs]
+        cs, bits = var[0].cs, bin(e)[3:]
+        base = acc = [x.value for x in var]
+        steps = []  # the values of every product of the chain, for every variable x
+        for b in bits:
+            acc = cs.v_mul_many(acc, acc)
+            steps.append(acc)
+            if b == "1":
+                acc = cs.v_mul_many(acc, base)
+                steps.append(acc)
+        out, k = [], 0
+        for x in xs:
+            if x.const:
+                out.append(x.pow_by_constant(e))
+                continue
+            vals = iter(step[k] for step in steps)
+            cur = x
+            for b in bits:
+                cur = cur._product(cur, next(vals))
+                if b == "1":
+                    cur = cur._product(x, next(vals))
+            out.append(cur)
+            k += 1
+        return out
 
     def inverse(self) -> "FpVar":
         cs, p = self.cs, self.cs.field.p

@@ -569,3 +569,56 @@ def test_r1cs_checks_on_the_card_match_cpu(cuda):
         results.append((out.value.cpu(), ok, bcs.satisfied_per_instance().tolist()))
     assert torch.equal(results[0][0], results[1][0]) and results[0][1:] == results[1][1:]
     assert results[0][1:] == ([True] * 6, [i != 2 for i in range(6)])
+
+
+def test_merkle_path_circuits_on_the_card_match_cpu(cuda):
+    """The batched Merkle membership circuits: PathVar (N = 8, a 16-leaf
+    Poseidon tree; the Montgomery check) and BytePathVar (N = 4, a 4-leaf
+    SHA-256 tree; the int64 small-domain check), each with one instance
+    against a wrong root, give on the card the ok values, per-instance
+    verdicts and first failing constraints they give on the CPU, before and
+    after ok is enforced."""
+    from crypto_primitives_tpu_torch.models.merkle_tree.device import poseidon_device_tree, sha256_device_tree
+    from crypto_primitives_tpu_torch.r1cs import FpVar
+    from crypto_primitives_tpu_torch.r1cs.batch import BatchConstraintSystem
+    from crypto_primitives_tpu_torch.r1cs.gadgets.merkle import BytePathVar, PathVar
+    from crypto_primitives_tpu_torch.r1cs.gadgets.poseidon import PoseidonCRHGadget, PoseidonTwoToOneCRHGadget
+    from crypto_primitives_tpu_torch.r1cs.gadgets.sha256 import DigestVar, Sha256CRHGadget, Sha256TwoToOneCRHGadget
+    from crypto_primitives_tpu_torch.r1cs.vars import bytes_to_uint8s
+
+    cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+    leaves = _fr_rows((16,), 18)
+    ptree = poseidon_device_tree(BLS12_381_FR, cfg, leaves, device="cpu")
+    idx = [0, 3, 5, 6, 9, 10, 12, 15]
+    roots = [ptree.root()] * 8
+    roots[5] = (roots[5] + 1) % BLS12_381_FR.p
+    sleaves = np.random.default_rng(19).integers(0, 256, (4, 32), dtype=np.uint8)
+    stree = sha256_device_tree(sleaves, device="cpu")
+    sroots = np.frombuffer(stree.root() * 4, dtype=np.uint8).reshape(4, 32).copy()
+    sroots[1, 7] ^= 1
+
+    def run(dev, byte):
+        if byte:
+            bcs = BatchConstraintSystem(BLS12_381_FR, 4, device=dev)
+            pv = BytePathVar.new_witness_batch(bcs, [stree.generate_proof(i) for i in range(4)])
+            ok = pv.verify_membership(Sha256CRHGadget(), Sha256TwoToOneCRHGadget(),
+                                      DigestVar(bcs, bytes_to_uint8s(bcs, sroots, "input")),
+                                      bytes_to_uint8s(bcs, sleaves, "witness"))
+        else:
+            bcs = BatchConstraintSystem(BLS12_381_FR, 8, device=dev)
+            pv = PathVar.new_witness_batch(bcs, [ptree.generate_proof(i) for i in idx])
+            ok = pv.verify_membership(PoseidonCRHGadget(cfg), PoseidonTwoToOneCRHGadget(cfg),
+                                      FpVar.new_input(bcs, torch.from_numpy(BLS12_381_FR.pack(roots))),
+                                      [FpVar.new_witness(bcs, leaves[idx])])
+        before = bcs.satisfied_per_instance()
+        ok.fp.enforce_equal(FpVar.constant(bcs, 1))
+        after, first = bcs.satisfied_per_instance(), bcs.which_unsatisfied()
+        assert after.device.type == first.device.type == bcs.device.type
+        return [np.asarray(ok.value.cpu() if isinstance(ok.value, torch.Tensor) else ok.value).tolist(),
+                before.tolist(), after.tolist(), first.tolist()]
+
+    for byte, n, bad in ((False, 8, 5), (True, 4, 1)):
+        card, host = run(cuda, byte), run("cpu", byte)
+        assert card == host
+        assert card[0] == card[2] == [i != bad for i in range(n)] and card[1] == [True] * n
+        assert [f >= 0 for f in card[3]] == [i == bad for i in range(n)]

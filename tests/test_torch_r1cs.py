@@ -165,6 +165,29 @@ def _coo_lists(cs):
     return {m: (coo[m][0].tolist(), coo[m][1].tolist(), [int(x) for x in coo[m][2]]) for m in "abc"}
 
 
+def matrices(cs):
+    """A, B and C row by row, each row its {variable: coefficient} terms:
+    equal rows are equal COO matrices, compared without flattening the
+    millions of nonzeros of a Pedersen circuit."""
+    return [[lc.terms for lc in rows] for rows in (cs.a_rows, cs.b_rows, cs.c_rows)]
+
+
+def assert_same_circuit(build):
+    """Build one circuit in both packages: equal counts, assignments,
+    matrices, outputs and first failing constraints.  Returns the port's
+    (cs, outputs, first failing constraint or None)."""
+    cs, outs = build(PORT)
+    jcs, jouts = build(JAX)
+    assert (cs.num_constraints, cs.num_witness, cs.num_instance) == (
+        jcs.num_constraints, jcs.num_witness, jcs.num_instance)
+    assert cs.assignments == jcs.assignments
+    assert outs == jouts
+    assert matrices(cs) == matrices(jcs)
+    first = cs.which_unsatisfied()
+    assert first == jcs.which_unsatisfied()
+    return cs, outs, first
+
+
 @pytest.mark.parametrize("name", sorted(SCALAR))
 def test_scalar_circuit_matches_jax(name):
     cs, outs, want = SCALAR[name](PORT)

@@ -109,10 +109,14 @@ def test_batched_poseidon_two_to_one_matches_scalar_tier_and_jax():
     assert bcs.satisfied_per_instance().tolist() == expect
     assert bcs.satisfied_per_instance(chunk=2).tolist() == expect  # a Montgomery chunk smaller than N
     jcs, _, _ = poseidon_two_to_one(JAX, ls[bad], rs[bad])
-    jcs.assignments[k] = 7
+    for c in (scalar[bad], jcs):
+        c.assignments[k] = 7
     assert not jcs.is_satisfied() and not bcs.is_satisfied()
-    with pytest.raises(NotImplementedError):
-        bcs.which_unsatisfied()
+    # the Montgomery check names the constraint both packages' scalar tiers name
+    # (JAX's batch raises NotImplementedError for a field circuit)
+    first = bcs.which_unsatisfied()
+    assert first.tolist() == [-1 if i != bad else jcs.which_unsatisfied() for i in range(n_inst)]
+    assert bcs.which_unsatisfied(bad) == scalar[bad].which_unsatisfied() == jcs.which_unsatisfied()
 
 
 def _field_plane(cs, cfg, xv, yv):
