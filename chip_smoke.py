@@ -84,11 +84,15 @@ Phases (each prints a flushed line before and after, with its seconds):
      against its evaluate_batch row (K4), each through
      check_satisfied_device; the MockLinSNARK verifier circuit, true and
      false with a tampered proof; each call's host synthesis and device check
-     times.  Cuts, for its 60 s: the byte paths are of an 8-leaf tree, not a
-     2^20-leaf one (a depth-20 byte path is about 1.5 M constraints); the
-     Pedersen CRH and compressor gadgets run at JAX's test window 4 x 16, not
-     250 x 8 (over 2,000 bits the select chain's linear combinations grow by
-     one term a bit: millions of nonzeros);
+     times.  It fails past its 60 s.  Cuts, for that limit: the byte paths
+     are of an 8-leaf tree, not a 2^20-leaf one (a depth-20 byte path is
+     about 1.5 M constraints); the Pedersen CRH and compressor gadgets run
+     at JAX's test window 4 x 16 (phase 11 runs them at phase 5's);
+  11. the Pedersen CRH and compressor gadgets at phase 5's window 250 x 8
+     over a 128-byte input (run after phase 10, before phase 6), each equal
+     to its evaluate_batch row (K4) and satisfied on the card; their host
+     synthesis and check times, and phase 10's time had it run them in place
+     of its 4 x 16 ones;
   6. times: each kernel at its path's shape (its output there held on 4096
      random rows against the plain version), the plain version's time, and
      the bound the card sets; SHA-256's byte entry at 2^19 messages of 64
@@ -120,6 +124,9 @@ SEED = 20261017
 LEAVES = 1 << 20
 CHECK_ROWS = 4096
 TE_ROWS = 1 << 16  # Pedersen CRH and commitment rows on ed-on-bls12-377
+# phase 5's Pedersen window and inputs (benches/crh.rs): 128-byte inputs fill
+# 1024 of the window's 2000 bits
+PEDERSEN_WINDOW, PEDERSEN_BYTES = (250, 8), 128
 SW_ROWS = 1 << 14  # the same on BLS12-381 G1
 PEDERSEN_LEAVES = 1 << 16
 SAMPLE = 64  # rows of each curve path held against the host oracle
@@ -160,9 +167,10 @@ BYTE_TREE_LEAVES = 8
 POINT_TREE_LEAVES = 4  # tests/test_merkle_pedersen.py:143-200: two 1024-bit compresses
 ELGAMAL_ROWS = 32  # encrypt_batch's fixed-base route, as phase 7's 2^14 rows take
 # the Pedersen CRH and compressor gadgets at JAX's test window
-# (tests/test_r1cs_curve_gadgets.py:31), cut from phase 5's 250 x 8: over 2,000
-# bits the select chain's linear combinations grow by one term a bit, so such a
-# circuit holds millions of nonzeros and its synthesis and check take seconds
+# (tests/test_r1cs_curve_gadgets.py:31) in phase 10, and at phase 5's in phase 11:
+# over 1,024 input bits the select chain's linear combinations grow by one term a
+# bit, about 10.2 M nonzeros a circuit, and phase 10 with them would run over
+# its limit (PERF.md, section 4)
 CURVE_WINDOW = (4, 16)
 SNARK_INPUTS = 3
 PHASE10_LIMIT_S = 60
@@ -352,17 +360,88 @@ def affine_host(curve, rows):
     return [(int(x), int(y)) for x, y in curve.base.unpack(rows.cpu())]
 
 
-def gadget_phase(dev, cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, bh_inputs, launches, gen,
-                 n_paths=GADGET_PATHS, n_byte=BYTE_PATHS):
-    """Phase 10: the Merkle, curve and SNARK gadgets on ``dev``, each held
+class Calls:
+    """A phase's timed calls: (label, seconds) in ``summary``; a batch
+    twin's launches added to ``launches``, the kernels line's totals."""
+
+    def __init__(self, launches):
+        self.summary, self.launches = [], launches
+
+    def timed(self, label, fn):
+        """Host clock around fn, ending in a synchronize."""
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        self.summary.append((label, dt))
+        return out, dt
+
+    def native(self, path, fn, needs):
+        """A batch twin, driven with the launch counts reset."""
+        (out, counts), _ = self.timed(path, lambda: drive(path, fn, needs))
+        for k in needs:
+            self.launches[k] += counts[k]
+        return out
+
+    def checked(self, name, cs):
+        """check_satisfied_device on the scalar circuit; its verdict."""
+        from crypto_primitives_tpu_torch.r1cs.device_check import check_satisfied_device
+
+        torch.cuda.reset_peak_memory_stats()
+        ok, dt = self.timed(f"{name}: check_satisfied_device ({cs.num_constraints} constraints)",
+                            lambda: check_satisfied_device(cs, device="cuda"))
+        nnz = sum(len(lc.terms) for rows in (cs.a_rows, cs.b_rows, cs.c_rows) for lc in rows)
+        log(f"  {name}: {cs.num_constraints} constraints, {nnz} nonzeros, {cs.num_witness} witnesses; "
+            f"check_satisfied_device {ok} in {dt:.3f} s (peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
+        return ok
+
+    def print_summary(self):
+        for label, dt in self.summary:
+            log(f"    {label}: {dt:.3f} s")
+
+
+def pedersen_gadgets(calls, window, nbytes, gen):
+    """PedersenCRHGadget and PedersenCRHCompressorGadget on ed-on-bls12-377
+    at ``window`` over one ``nbytes``-byte input, each equal to its batch
+    twin's row (K4) and satisfied on the card.  Returns their seconds."""
+    from crypto_primitives_tpu_torch.models.crh import PedersenCRH
+    from crypto_primitives_tpu_torch.models.crh.injective_map import PedersenCRHCompressor
+    from crypto_primitives_tpu_torch.ops.curves_known import ED_ON_BLS12_377 as ed
+    from crypto_primitives_tpu_torch.r1cs import ConstraintSystem
+    from crypto_primitives_tpu_torch.r1cs.gadgets.pedersen import PedersenCRHCompressorGadget, PedersenCRHGadget
+    from crypto_primitives_tpu_torch.r1cs.vars import bytes_to_uint8s
+
+    t = time.time()
+    shape = f"window {window.window_size} x {window.num_windows}, {nbytes}-byte inputs"
+    crh, comp = PedersenCRH(ed, window), PedersenCRHCompressor(ed, window)
+    params = crh.setup(random.Random(SEED + 12))
+    inputs = torch.randint(0, 256, (SAMPLE, nbytes), dtype=torch.uint8, device="cuda", generator=gen)
+    digests = calls.native(f"Pedersen CRH evaluate_batch, {shape}, {SAMPLE} rows",
+                           lambda: crh.evaluate_batch(params, inputs, device="cuda"), ["msm_te"])
+    xs = calls.native(f"PedersenCRHCompressor evaluate_batch, {shape}, {SAMPLE} rows",
+                      lambda: comp.evaluate_batch(params, inputs, device="cuda"), ["msm_te"])
+    row = inputs[0].cpu().numpy().tobytes()
+    for gadget, want_row in ((PedersenCRHGadget, affine_host(ed, digests[:1])[0]),
+                             (PedersenCRHCompressorGadget, int(ed.base.unpack(xs[0].cpu())))):
+        name = f"{gadget.__name__}, {shape}"
+        cs = ConstraintSystem(ed.base)
+        out, _ = calls.timed(f"{name}: host synthesis",
+                             lambda: gadget(ed, window).evaluate(cs, params, bytes_to_uint8s(cs, row)))
+        require(out.value == want_row, f"{name} == its batch twin's row 0")
+        require(calls.checked(name, cs) is True, f"{name}: satisfied on the card")
+    return time.time() - t
+
+
+def gadget_phase(cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, bh_inputs, calls, gen):
+    """Phase 10: the Merkle, curve and SNARK gadgets on the card, each held
     against the native result computed there (the reference's
     ``native == gadget.value()``).  ``pedersen_tree`` is phase 5's (curve,
     leaf and two-to-one parameters, windows); ``bh`` and its parameters are
-    phase 8's, with its inputs.  Returns the phase's (label, seconds) list."""
+    phase 8's, with its inputs.  Returns the seconds of the Pedersen CRH and
+    compressor gadgets at CURVE_WINDOW."""
     import numpy as np
 
-    from crypto_primitives_tpu_torch.models.crh import PedersenCRH, PoseidonCRH, Window
-    from crypto_primitives_tpu_torch.models.crh.injective_map import PedersenCRHCompressor
+    from crypto_primitives_tpu_torch.models.crh import PoseidonCRH, Window
     from crypto_primitives_tpu_torch.models.encryption import ElGamal
     from crypto_primitives_tpu_torch.models.merkle_tree import Path
     from crypto_primitives_tpu_torch.models.merkle_tree.device import pedersen_device_tree, sha256_device_tree
@@ -372,13 +451,11 @@ def gadget_phase(dev, cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, b
     from crypto_primitives_tpu_torch.ops.sha256 import sha256
     from crypto_primitives_tpu_torch.r1cs import ConstraintSystem, FpVar
     from crypto_primitives_tpu_torch.r1cs.batch import BatchConstraintSystem
-    from crypto_primitives_tpu_torch.r1cs.device_check import check_satisfied_device
     from crypto_primitives_tpu_torch.r1cs.gadgets.curve import TEAffineVar
     from crypto_primitives_tpu_torch.r1cs.gadgets.elgamal import ElGamalEncGadget
     from crypto_primitives_tpu_torch.r1cs.gadgets.merkle import BytePathVar, PathVar, PointPathVar
     from crypto_primitives_tpu_torch.r1cs.gadgets.pedersen import (
         BoweHopwoodCRHGadget,
-        PedersenCRHCompressorGadget,
         PedersenCRHGadget,
         PedersenTwoToOneCRHGadget,
     )
@@ -390,64 +467,38 @@ def gadget_phase(dev, cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, b
     from crypto_primitives_tpu_torch.r1cs.vars import bytes_to_uint8s
 
     FR = cfg.field
-    summary = []
+    timed, native, checked = calls.timed, calls.native, calls.checked
 
-    def timed(label, fn):
-        """Host clock around fn, ending in a synchronize."""
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.time() - t
-        summary.append((label, dt))
-        return out, dt
-
-    def native(path, fn, needs):
-        """A batch twin, driven with the launch counts reset; its launches
-        go into the kernels line's totals."""
-        (out, counts), _ = timed(path, lambda: drive(path, fn, needs))
-        for k in needs:
-            launches[k] += counts[k]
-        return out
-
-    def checked(name, cs):
-        """check_satisfied_device on the scalar circuit; its verdict."""
-        torch.cuda.reset_peak_memory_stats()
-        ok, dt = timed(f"{name}: check_satisfied_device ({cs.num_constraints} constraints)",
-                       lambda: check_satisfied_device(cs, device=dev))
-        nnz = sum(len(lc.terms) for rows in (cs.a_rows, cs.b_rows, cs.c_rows) for lc in rows)
-        log(f"  {name}: {cs.num_constraints} constraints, {nnz} nonzeros, {cs.num_witness} witnesses; "
-            f"check_satisfied_device {ok} in {dt:.3f} s (peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
-        return ok
-
-    # -- Poseidon membership: n_paths paths of phase 4's tree, one tampered leaf
+    # -- Poseidon membership: GADGET_PATHS paths of phase 4's tree, one tampered leaf
     n_leaves = int(pos_tree.leaf_digests.shape[0])
-    bad = R1CS_TAMPERED % n_paths
-    idx = torch.randperm(n_leaves, generator=torch.Generator().manual_seed(SEED))[:n_paths].to(dev)
+    bad = R1CS_TAMPERED % GADGET_PATHS
+    idx = torch.randperm(n_leaves, generator=torch.Generator().manual_seed(SEED))[:GADGET_PATHS].to("cuda")
 
     def native_paths():
         leaf_sib, auth = pos_tree.proof_rows(idx)
         vals = FR.unpack(torch.cat([leaf_sib.unsqueeze(1), auth], dim=1).cpu())  # one copy to the host
         return leaf_sib, auth, [Path(int(v[0]), [int(x) for x in v[1:]], i) for v, i in zip(vals, idx.tolist())]
 
-    (leaf_sib, auth, paths), t_paths = timed(f"Poseidon paths: proof_rows of {n_paths} leaves, one copy to the host",
-                                             native_paths)
+    (leaf_sib, auth, paths), t_paths = timed(
+        f"Poseidon paths: proof_rows of {GADGET_PATHS} leaves, one copy to the host", native_paths)
     leaf_rows = pos_leaves[idx].clone()
     leaf_rows[bad] = pos_leaves[(idx[bad] + 1) % n_leaves]  # a wrong leaf in one instance
-    want = [i != bad for i in range(n_paths)]
+    want = [i != bad for i in range(GADGET_PATHS)]
 
     def synth_poseidon():
-        bcs = BatchConstraintSystem(FR, n_paths, device=dev)
+        bcs = BatchConstraintSystem(FR, GADGET_PATHS, device="cuda")
         pv = PathVar.new_witness_batch(bcs, paths)
-        root = FpVar.new_input(bcs, pos_tree.root_row().expand(n_paths, -1))
+        root = FpVar.new_input(bcs, pos_tree.root_row().expand(GADGET_PATHS, -1))
         ok = pv.verify_membership(PoseidonCRHGadget(cfg), PoseidonTwoToOneCRHGadget(cfg), root,
                                   [FpVar.new_witness(bcs, leaf_rows)])
         return bcs, ok
 
-    (bcs, ok), t_synth = timed(f"Poseidon membership: synthesis of {n_paths} instances (the field tier on the card)",
-                               synth_poseidon)
-    native_ok = native(f"Poseidon membership: the native check of {n_paths} paths (verify_rows_batch)",
+    (bcs, ok), t_synth = timed(
+        f"Poseidon membership: synthesis of {GADGET_PATHS} instances (the field tier on the card)", synth_poseidon)
+    native_ok = native(f"Poseidon membership: the native check of {GADGET_PATHS} paths (verify_rows_batch)",
                        lambda: pos_tree.verify_rows_batch(
-                           pos_tree.root_row(), PoseidonCRH(FR).evaluate_batch(cfg, leaf_rows.unsqueeze(-2), device=dev),
+                           pos_tree.root_row(),
+                           PoseidonCRH(FR).evaluate_batch(cfg, leaf_rows.unsqueeze(-2), device="cuda"),
                            idx, leaf_sib, auth),
                        ["poseidon_permute"])
     require(ok.value.tolist() == native_ok.tolist() == want,
@@ -474,41 +525,42 @@ def gadget_phase(dev, cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, b
                                  scalar_poseidon)
     require((scs.num_constraints, scs.num_witness) == (bcs.num_constraints, bcs.num_witness),
             "Poseidon membership: constraint and witness counts == the scalar tier's")
-    require(first.tolist() == [-1 if i != bad else host_first for i in range(n_paths)],
+    require(first.tolist() == [-1 if i != bad else host_first for i in range(GADGET_PATHS)],
             f"Poseidon membership: which_unsatisfied names constraint {host_first} for instance {bad}, as the host does")
     log(f"  Poseidon membership, depth {len(paths[0].auth_path) + 1}: {bcs.num_constraints} constraints, "
-        f"{bcs.num_witness} witnesses, {n_paths} instances; paths {t_paths:.3f} s, synthesis {t_synth:.3f} s, "
+        f"{bcs.num_witness} witnesses, {GADGET_PATHS} instances; paths {t_paths:.3f} s, synthesis {t_synth:.3f} s, "
         f"Montgomery check {t_check:.3f} s (peak {peak:.2f} GiB); instance {bad} (a wrong leaf) alone false, and "
         f"alone failing at constraint {host_first} once ok is enforced, on the card and the host")
     del bcs, ok, first
 
-    # -- SHA-256 byte membership: n_byte paths of an 8-leaf tree, one wrong root byte
-    sleaves = torch.randint(0, 256, (BYTE_TREE_LEAVES, 32), dtype=torch.uint8, device=dev, generator=gen)
-    stree = native("SHA-256 tree of 8 leaves: build", lambda: sha256_device_tree(sleaves, device=dev),
+    # -- SHA-256 byte membership: BYTE_PATHS paths of an 8-leaf tree, one wrong root byte
+    sleaves = torch.randint(0, 256, (BYTE_TREE_LEAVES, 32), dtype=torch.uint8, device="cuda", generator=gen)
+    stree = native("SHA-256 tree of 8 leaves: build", lambda: sha256_device_tree(sleaves, device="cuda"),
                    ["sha256_compress"])
-    sidx = torch.arange(n_byte, device=dev) % BYTE_TREE_LEAVES
+    sidx = torch.arange(BYTE_PATHS, device="cuda") % BYTE_TREE_LEAVES
     s_sib, s_auth = stree.proof_rows(sidx)
     sib_np, auth_np, sidx_np = s_sib.cpu().numpy(), s_auth.cpu().numpy(), sidx.tolist()
-    spaths = [Path(sib_np[i].tobytes(), [a.tobytes() for a in auth_np[i]], sidx_np[i]) for i in range(n_byte)]
-    sbad = bad % n_byte
-    roots = np.tile(np.frombuffer(stree.root(), dtype=np.uint8), (n_byte, 1))
+    spaths = [Path(sib_np[i].tobytes(), [a.tobytes() for a in auth_np[i]], sidx_np[i])
+              for i in range(BYTE_PATHS)]
+    sbad = bad % BYTE_PATHS
+    roots = np.tile(np.frombuffer(stree.root(), dtype=np.uint8), (BYTE_PATHS, 1))
     roots[sbad, 0] ^= 1
     sleaves_np = sleaves.cpu().numpy()[sidx_np]
 
     def synth_sha():
-        bcs = BatchConstraintSystem(FR, n_byte, device=dev)
+        bcs = BatchConstraintSystem(FR, BYTE_PATHS, device="cuda")
         pv = BytePathVar.new_witness_batch(bcs, spaths)
         ok = pv.verify_membership(Sha256CRHGadget(), Sha256TwoToOneCRHGadget(),
                                   DigestVar(bcs, bytes_to_uint8s(bcs, roots, "input")),
                                   bytes_to_uint8s(bcs, sleaves_np, "witness"))
         return bcs, ok
 
-    (bcs, ok), t_synth = timed(f"SHA-256 byte membership: host synthesis of {n_byte} instances", synth_sha)
-    native_ok = native(f"SHA-256 byte membership: the native check of {n_byte} paths (verify_rows_batch)",
-                       lambda: stree.verify_rows_batch(stree.root_row(), sha256(sleaves[sidx], device=dev), sidx,
+    (bcs, ok), t_synth = timed(f"SHA-256 byte membership: host synthesis of {BYTE_PATHS} instances", synth_sha)
+    native_ok = native(f"SHA-256 byte membership: the native check of {BYTE_PATHS} paths (verify_rows_batch)",
+                       lambda: stree.verify_rows_batch(stree.root_row(), sha256(sleaves[sidx], device="cuda"), sidx,
                                                        s_sib, s_auth),
                        ["sha256_compress"])
-    swant = [i != sbad for i in range(n_byte)]
+    swant = [i != sbad for i in range(BYTE_PATHS)]
     require(bool(native_ok.all()) and np.asarray(ok.value).tolist() == swant,
             f"SHA-256 byte membership: every native path verifies; ok false for instance {sbad} (a wrong root byte) "
             f"alone")
@@ -520,16 +572,16 @@ def gadget_phase(dev, cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, b
                          lambda: bcs.satisfied_per_instance())
     require(per.tolist() == swant, f"SHA-256 byte membership: with ok enforced, instance {sbad} alone fails")
     log(f"  SHA-256 byte membership, {BYTE_TREE_LEAVES}-leaf tree: {bcs.num_constraints} constraints, "
-        f"{bcs.num_witness} witnesses, {n_byte} instances; synthesis {t_synth:.3f} s, small-domain check "
+        f"{bcs.num_witness} witnesses, {BYTE_PATHS} instances; synthesis {t_synth:.3f} s, small-domain check "
         f"{t_first:.3f} s first and {t_check:.3f} s with ok enforced; instance {sbad} alone false and alone failing")
     del bcs, ok, per
 
     # -- the Pedersen point path (scalar): a 4-leaf JubJub tree with phase 5's parameters
     curve, leaf_params, two_params, leaf_window, two_window = pedersen_tree
-    pleaves = torch.randint(0, 256, (POINT_TREE_LEAVES, 8), dtype=torch.uint8, device=dev, generator=gen)
+    pleaves = torch.randint(0, 256, (POINT_TREE_LEAVES, 8), dtype=torch.uint8, device="cuda", generator=gen)
     ptree = native(f"Pedersen tree of {POINT_TREE_LEAVES} leaves over JubJub: build",
                    lambda: pedersen_device_tree(curve, leaf_params, two_params, leaf_window, two_window, pleaves,
-                                                device=dev),
+                                                device="cuda"),
                    ["msm_te"])
     proot, pindex = ptree.root(), POINT_TREE_LEAVES - 1
 
@@ -559,7 +611,7 @@ def gadget_phase(dev, cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, b
     msgs = [ed.rand_point(crng) for _ in range(ELGAMAL_ROWS)]
     rs = [eg.rand_randomness(crng) for _ in range(ELGAMAL_ROWS)]
     cts = native(f"ElGamal encrypt_batch, {ELGAMAL_ROWS} messages", lambda: eg.encrypt_batch(eparams, epk, msgs, rs,
-                                                                                             device=dev),
+                                                                                             device="cuda"),
                  ["msm_te"])
     cs = ConstraintSystem(ed.base)
     g = ElGamalEncGadget(ed)
@@ -582,30 +634,14 @@ def gadget_phase(dev, cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, b
     require(checked("SchnorrRandomizePkGadget", cs) is True, "SchnorrRandomizePkGadget: satisfied on the card")
 
     window = Window(*CURVE_WINDOW)
-    crh, comp = PedersenCRH(ed, window), PedersenCRHCompressor(ed, window)
-    cparams = crh.setup(crng)
-    inputs = torch.randint(0, 256, (SAMPLE, window.window_size * window.num_windows // 8), dtype=torch.uint8,
-                           device=dev, generator=gen)
-    digests = native(f"Pedersen CRH evaluate_batch, window {CURVE_WINDOW}, {SAMPLE} rows",
-                     lambda: crh.evaluate_batch(cparams, inputs, device=dev), ["msm_te"])
-    xs = native(f"PedersenCRHCompressor evaluate_batch, window {CURVE_WINDOW}, {SAMPLE} rows",
-                lambda: comp.evaluate_batch(cparams, inputs, device=dev), ["msm_te"])
+    t_pedersen = pedersen_gadgets(calls, window, window.window_size * window.num_windows // 8, gen)
     bh_xs = native(f"Bowe-Hopwood CRH evaluate_batch, window {BH_WINDOW}, {SAMPLE} rows",
-                   lambda: bh.evaluate_batch(bh_params, bh_inputs[:SAMPLE], device=dev), ["msm_te"])
-    row = inputs[0].cpu().numpy().tobytes()
-    for name, gadget, want_row in (
-        ("PedersenCRHGadget", lambda cs: PedersenCRHGadget(ed, window).evaluate(cs, cparams, bytes_to_uint8s(cs, row)),
-         affine_host(ed, digests[:1])[0]),
-        ("PedersenCRHCompressorGadget", lambda cs: PedersenCRHCompressorGadget(ed, window).evaluate(
-            cs, cparams, bytes_to_uint8s(cs, row)), int(ed.base.unpack(xs[0].cpu()))),
-        ("BoweHopwoodCRHGadget", lambda cs: BoweHopwoodCRHGadget(ed, Window(*BH_WINDOW)).evaluate(
-            cs, bh_params, bytes_to_uint8s(cs, bh_inputs[0].cpu().numpy().tobytes())),
-         int(ed.base.unpack(bh_xs[0].cpu()))),
-    ):
-        cs = ConstraintSystem(ed.base)
-        out, _ = timed(f"{name}: host synthesis", lambda: gadget(cs))
-        require(out.value == want_row, f"{name} == its batch twin's row 0")
-        require(checked(name, cs) is True, f"{name}: satisfied on the card")
+                   lambda: bh.evaluate_batch(bh_params, bh_inputs[:SAMPLE], device="cuda"), ["msm_te"])
+    cs = ConstraintSystem(ed.base)
+    out, _ = timed("BoweHopwoodCRHGadget: host synthesis", lambda: BoweHopwoodCRHGadget(
+        ed, Window(*BH_WINDOW)).evaluate(cs, bh_params, bytes_to_uint8s(cs, bh_inputs[0].cpu().numpy().tobytes())))
+    require(out.value == int(ed.base.unpack(bh_xs[0].cpu())), "BoweHopwoodCRHGadget == its batch twin's row 0")
+    require(checked("BoweHopwoodCRHGadget", cs) is True, "BoweHopwoodCRHGadget: satisfied on the card")
 
     # -- the MockLinSNARK verifier circuit over BLS12-381 Fr
     f = FieldSpec("m61", 2 ** 61 - 1)
@@ -623,7 +659,7 @@ def gadget_phase(dev, cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, b
         require(verdict.value is (not tampered) and snark.verify(vk, x, p) is (not tampered),
                 f"{name}: the circuit's verdict == the native verify")
         require(checked(name, cs) is True, f"{name}: satisfied on the card")
-    return summary
+    return t_pedersen
 
 
 def main() -> int:
@@ -905,7 +941,7 @@ def main() -> int:
     breakdown = {}
     with Phase("phase 5: curve paths at full width"):
         torch.cuda.reset_peak_memory_stats()
-        window = Window(250, 8)  # benches/crh.rs: 128-byte inputs fill 1024 of its 2000 bits
+        window = Window(*PEDERSEN_WINDOW)
         main_shapes = {}
         for curve, rows, kname in ((ED_ON_BLS12_377, TE_ROWS, "msm_te"), (BLS12_381_G1, SW_ROWS, "msm_sw")):
             t = time.time()
@@ -915,7 +951,7 @@ def main() -> int:
             cparams = com.setup(random.Random(SEED + 1))
             params.packed_grouped(), cparams.packed_grouped(), cparams.crh_params().packed_grouped()
             log(f"  {curve.name}: setup and grouped tables on the host {time.time() - t:.2f} s")
-            inputs = torch.randint(0, 256, (rows, 128), dtype=torch.uint8, device="cuda", generator=gen)
+            inputs = torch.randint(0, 256, (rows, PEDERSEN_BYTES), dtype=torch.uint8, device="cuda", generator=gen)
             digests, counts = drive(f"Pedersen CRH evaluate_batch, {curve.name}, {rows} rows",
                                     lambda: crh.evaluate_batch(params, inputs), [kname])
             launches[kname] += counts[kname]
@@ -1561,13 +1597,22 @@ def main() -> int:
             log(f"    {label}: {dt:.3f} s")
 
     with Phase("phase 10: the Merkle, curve and SNARK gadgets on the card") as phase:
-        summary10 = gadget_phase("cuda", cfg, pos_tree, pos_leaves,
-                                 (JUBJUB, leaf_params, two_params, leaf_window, two_window),
-                                 bh, bh_params, bh_inputs, launches, gen)
+        gadget_calls = Calls(launches)
+        t_small = gadget_phase(cfg, pos_tree, pos_leaves, (JUBJUB, leaf_params, two_params, leaf_window, two_window),
+                               bh, bh_params, bh_inputs, gadget_calls, gen)
         log("  phase 10 calls (host clock, ending in a synchronize):")
-        for label, dt in summary10:
-            log(f"    {label}: {dt:.3f} s")
-        log(f"  phase 10: {time.time() - phase.t:.2f} s (limit {PHASE10_LIMIT_S})")
+        gadget_calls.print_summary()
+        t10 = time.time() - phase.t
+        log(f"  phase 10: {t10:.2f} s (limit {PHASE10_LIMIT_S})")
+        require(t10 <= PHASE10_LIMIT_S, f"phase 10 within its {PHASE10_LIMIT_S} s")
+
+    with Phase("phase 11: the Pedersen CRH and compressor gadgets at phase 5's window") as phase:
+        gadget_calls = Calls(launches)
+        pedersen_gadgets(gadget_calls, Window(*PEDERSEN_WINDOW), PEDERSEN_BYTES, gen)
+        log("  phase 11 calls (host clock, ending in a synchronize):")
+        gadget_calls.print_summary()
+        log(f"  phase 10 with these gadgets in place of its {CURVE_WINDOW[0]} x {CURVE_WINDOW[1]} ones: "
+            f"{t10 - t_small + time.time() - phase.t:.2f} s (limit {PHASE10_LIMIT_S})")
 
     with Phase("phase 6: times"):
         half = LEAVES // 2

@@ -11,7 +11,9 @@ instances at once on ``device`` (``None`` means CUDA).
 Two value planes:
   * field circuits (FpVar / Boolean: the Poseidon sponge and CRH gadgets,
     select, is_eq): values are ``(N, W)`` int32 Montgomery words on the
-    device, computed by the port's plain field tier (``ops/field.py``);
+    device, computed by the port's plain field tier (``ops/field.py``), on
+    the card each product, sum and linear layer replayed from a CUDA graph
+    per input shape (:class:`_Replay`);
   * byte circuits (UInt8 / UInt32: the SHA-256 and Blake2s gadgets): bits
     and words stay host numpy (:class:`SmallWord`), as in the JAX package,
     so the dense bitwise traffic of a hash circuit costs no device call.
@@ -42,9 +44,36 @@ from crypto_primitives_tpu_torch.r1cs.device_check import _pack_matrix, rows_eva
 # Device memory the checks may fill at once with their largest intermediate:
 # the plain tier's int64 digit products of a Montgomery product ((2W)^2 of
 # them per element, 2 KiB at W = 8) or the int64 products of the small check.
-CHUNK_BYTES = 1 << 32
+CHUNK_BYTES = 1 << 30
 
 _SMALL_LIMIT = 1 << 62  # int64-safe magnitude ceiling
+
+
+def _mont_dot_rows(spec: FieldSpec, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(R, N, W) Montgomery words of sum_k m[r, k] x[n, k] for words x
+    (N, K, W) and m (R, K, W): one reduction a row."""
+    return ff.from_digits(ff.mont_dot_digits(spec, ff.to_digits(m).unsqueeze(1), ff.to_digits(x)))
+
+
+class _Replay:
+    """``fn(spec, *args)`` captured as one CUDA graph on copies of ``args``,
+    after an eager warm-up that uploads the field constants.  A call copies
+    its inputs in, replays, and hands out a copy of the output (a later
+    replay overwrites it).  A plain field op is a couple of hundred small
+    launches; a replay is one, beside the copies."""
+
+    def __init__(self, fn, spec: FieldSpec, args):
+        fn(spec, *args)
+        self.inputs = [a.clone() for a in args]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = fn(spec, *self.inputs)
+
+    def __call__(self, args):
+        for static, a in zip(self.inputs, args):
+            static.copy_(a)
+        self.graph.replay()
+        return self.out.clone()
 
 
 class SmallWord:
@@ -90,6 +119,8 @@ class BatchConstraintSystem(ConstraintSystem):
         super().__init__(field)
         self.batch = batch
         self._const_cache: dict = {}
+        self._rows_cache: dict = {}
+        self._replays: dict = {}  # (fn, input shapes) -> _Replay
         self._small_coo = None  # centered COO triples, per constraint count
         self._small_coo_n = -1
         self._device_coo: dict = {}  # (kind, constraint count) -> tensors on the device
@@ -103,6 +134,28 @@ class BatchConstraintSystem(ConstraintSystem):
             hit = torch.from_numpy(self.field.pack([c])[0]).to(self.device)  # (W,) Montgomery
             self._const_cache[c] = hit
         return hit
+
+    def _packed_rows(self, rows) -> torch.Tensor:
+        """Montgomery words on the device of a constant vector or matrix,
+        cached: a sponge's MDS matrix and round constants recur in every
+        permutation."""
+        key = tuple(tuple(r) if isinstance(r, (list, tuple)) else r for r in rows)
+        hit = self._rows_cache.get(key)
+        if hit is None:
+            hit = torch.from_numpy(self.field.pack(rows)).to(self.device)
+            self._rows_cache[key] = hit
+        return hit
+
+    def _op(self, fn, *args) -> torch.Tensor:
+        """``fn(field, *args)`` on word tensors: on the card replayed from
+        one CUDA graph per (fn, input shapes), eager elsewhere."""
+        if self.device.type != "cuda":
+            return fn(self.field, *args)
+        key = (fn, *(tuple(a.shape) for a in args))
+        replay = self._replays.get(key)
+        if replay is None:
+            replay = self._replays[key] = _Replay(fn, self.field, args)
+        return replay(args)
 
     def _centered(self, c: int):
         """Centered representative of c mod p (small iff c or p-c is)."""
@@ -176,7 +229,7 @@ class BatchConstraintSystem(ConstraintSystem):
             elif isinstance(a, SmallWord) and isinstance(b, SmallWord):
                 if a.bound + b.bound < _SMALL_LIMIT:
                     return self._small(a.v + b.v)
-        return ff.add(self.field, self._promote(a), self._promote(b))
+        return self._op(ff.add, self._promote(a), self._promote(b))
 
     def v_scale(self, a, c: int):
         if _is_int(a):
@@ -185,7 +238,7 @@ class BatchConstraintSystem(ConstraintSystem):
             cc = self._centered(c)
             if abs(cc) * a.bound < _SMALL_LIMIT:
                 return self._small(a.v * cc)
-        return ff.mont_mul(self.field, self._promote(a), self._packed_const(c))
+        return self._op(ff.mont_mul, self._promote(a), self._packed_const(c))
 
     def v_mul(self, a, b):
         if _is_int(a) and _is_int(b):
@@ -193,13 +246,13 @@ class BatchConstraintSystem(ConstraintSystem):
         if isinstance(a, SmallWord) and isinstance(b, SmallWord):
             if a.bound * b.bound < _SMALL_LIMIT:
                 return self._small(a.v * b.v)
-        return ff.mont_mul(self.field, self._promote(a), self._promote(b))
+        return self._op(ff.mont_mul, self._promote(a), self._promote(b))
 
     def v_mul_many(self, a, b):
         """One Montgomery product for all pairs when every value is on the
         device; SmallWord rows keep v_mul's small-domain path."""
         if all(isinstance(v, torch.Tensor) for v in (*a, *b)):
-            return list(ff.mont_mul(self.field, torch.stack(a), torch.stack(b)).unbind(0))
+            return list(self._op(ff.mont_mul, torch.stack(a), torch.stack(b)).unbind(0))
         return super().v_mul_many(a, b)
 
     def v_affine(self, vals, rows, consts):
@@ -209,18 +262,22 @@ class BatchConstraintSystem(ConstraintSystem):
         a term."""
         if all(_is_int(v) for v in vals):
             return super().v_affine([int(v) for v in vals], rows, consts)
-        spec = self.field
-        x = ff.to_digits(torch.stack([self._promote(v) for v in vals], dim=-2))  # (N, K, 2W)
-        m = ff.to_digits(torch.from_numpy(spec.pack(rows)).to(self.device))  # (R, K, 2W): c R
-        out = ff.from_digits(ff.mont_dot_digits(spec, m.unsqueeze(1), x))  # (R, N, W)
-        if any(k % spec.p for k in consts):
-            out = ff.add(spec, out, torch.from_numpy(spec.pack(consts)).to(self.device).unsqueeze(1))
+        x = torch.stack([self._promote(v) for v in vals], dim=-2)  # (N, K, W)
+        out = self._op(_mont_dot_rows, x, self._packed_rows(rows))  # (R, N, W); the rows' words are c R
+        if any(k % self.field.p for k in consts):
+            out = self._op(ff.add, out, self._packed_rows(consts).unsqueeze(1))
         return list(out.unbind(0))
 
     def v_inv0(self, a):
         if _is_int(a):
             return super().v_inv0(int(a))
-        return ff.inv(self.field, self._promote(a))  # Fermat: inv(0) == 0
+        # Fermat, a^(p - 2) by square-and-multiply (ff.inv's chain): inv(0) == 0
+        x = acc = self._promote(a)
+        for bit in bin(self.field.p - 2)[3:]:
+            acc = self._op(ff.mont_mul, acc, acc)
+            if bit == "1":
+                acc = self._op(ff.mont_mul, acc, x)
+        return acc
 
     def v_is_zero(self, a):
         if _is_int(a):

@@ -99,48 +99,44 @@ class FpVar:
     def pow_by_constant(self, e: int) -> "FpVar":
         """Square-and-multiply (ark FpVar::pow_by_constant); the s-box path
         in the Poseidon gadget (src/sponge/poseidon/constraints.rs:66-80)."""
-        if e < 1:
-            raise ValueError("exponent must be >= 1")
-        bits = bin(e)[2:]
-        acc = self
-        for b in bits[1:]:
-            acc = acc.square()
-            if b == "1":
-                acc = acc * self
-        return acc
+        return FpVar.pow_by_constant_many([self], e)[0]
 
     @staticmethod
     def pow_by_constant_many(xs: Sequence["FpVar"], e: int) -> List["FpVar"]:
-        """``[x.pow_by_constant(e) for x in xs]``: the same variables and
-        constraints in the same order, with each square-and-multiply step's
-        values computed for every variable x at once (``cs.v_mul_many``)."""
+        """``[x.pow_by_constant(e) for x in xs]``, each square-and-multiply
+        step's values computed for every variable x at once
+        (``cs.v_mul_many``): per variable x, one witness and one constraint
+        a step, in chain order; a constant x stays constant."""
         if e < 1:
             raise ValueError("exponent must be >= 1")
+        bits = bin(e)[3:]
         var = [x for x in xs if not x.const]
-        if not var:
-            return [x.pow_by_constant(e) for x in xs]
-        cs, bits = var[0].cs, bin(e)[3:]
-        base = acc = [x.value for x in var]
         steps = []  # the values of every product of the chain, for every variable x
-        for b in bits:
-            acc = cs.v_mul_many(acc, acc)
-            steps.append(acc)
-            if b == "1":
-                acc = cs.v_mul_many(acc, base)
+        if var:
+            cs = var[0].cs
+            base = acc = [x.value for x in var]
+            for b in bits:
+                acc = cs.v_mul_many(acc, acc)
                 steps.append(acc)
+                if b == "1":
+                    acc = cs.v_mul_many(acc, base)
+                    steps.append(acc)
         out, k = [], 0
         for x in xs:
-            if x.const:
-                out.append(x.pow_by_constant(e))
-                continue
-            vals = iter(step[k] for step in steps)
             cur = x
-            for b in bits:
-                cur = cur._product(cur, next(vals))
-                if b == "1":
-                    cur = cur._product(x, next(vals))
+            if x.const:
+                for b in bits:
+                    cur = cur * cur
+                    if b == "1":
+                        cur = cur * x
+            else:
+                vals = iter(step[k] for step in steps)
+                for b in bits:
+                    cur = cur._product(cur, next(vals))
+                    if b == "1":
+                        cur = cur._product(x, next(vals))
+                k += 1
             out.append(cur)
-            k += 1
         return out
 
     def inverse(self) -> "FpVar":
