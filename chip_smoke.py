@@ -93,6 +93,23 @@ Phases (each prints a flushed line before and after, with its seconds):
      to its evaluate_batch row (K4) and satisfied on the card; their host
      synthesis and check times, and phase 10's time had it run them in place
      of its 4 x 16 ones;
+  12. the sharded paths (parallel/) over NCCL at world size 1 (run after
+     phase 11, before phase 6), each through the kernels: the 2^20-leaf
+     SHA-256 (K3) and Poseidon (K1) trees built and proved by
+     sharded_merkle_build_prove_all, roots and all 2^20 auth paths equal to
+     phase 4's; a ShardedMerkleTree over the SHA-256 leaves: update_batch of
+     4096 leaves (the same root as a single-device tree updated alike),
+     proof_rows and verify_rows_batch on every path, a wrong root rejected,
+     and a 4096-leaf multipath verify, true and then false on a wrong root;
+     sharded_permute_batch on K1's timed 2^19 states, equal to
+     poseidon_kernel.permute; sharded_fixed_base_msm (K4, ed-on-bls12-377,
+     2^16 rows) and sharded_fixed_base_msm_sw (K5, BLS12-381 G1, 2^14 rows)
+     over the first 1024 generators of phase 5's window, affine-equal to
+     conditional_sum_grouped_auto on every row; the host engine
+     (native/cpmont.cpp, built with g++ meanwhile) against the kernels: its
+     msm_bits on 64 rows of each MSM, and its Poseidon two-to-one on 1024
+     pairs of the Poseidon tree's bottom inner level against K1's next level;
+     each call's seconds and its collectives' seconds;
   6. times: each kernel at its path's shape (its output there held on 4096
      random rows against the plain version), the plain version's time, and
      the bound the card sets; SHA-256's byte entry at 2^19 messages of 64
@@ -174,6 +191,8 @@ ELGAMAL_ROWS = 32  # encrypt_batch's fixed-base route, as phase 7's 2^14 rows ta
 CURVE_WINDOW = (4, 16)
 SNARK_INPUTS = 3
 PHASE10_LIMIT_S = 60
+# phase 12: the host engine's Poseidon pairs held against K1's tree level
+ENGINE_PAIRS = 1024
 
 # Pinned BLS12-381 Fr sponge output: absorb [0, 1, 2], squeeze 3
 # (tests/test_poseidon.py:121-129, the reference's src/sponge/poseidon/mod.rs:381-404).
@@ -662,6 +681,169 @@ def gadget_phase(cfg, pos_tree, pos_leaves, pedersen_tree, bh, bh_params, bh_inp
     return t_pedersen
 
 
+def sharded_phase(cfg, sha_leaves, sha_tree, pos_leaves, pos_tree, msm_inputs, launches, gen):
+    """Phase 12: ``parallel/`` on the card over NCCL at world size 1 (one
+    process, one card), each call driven through the kernels and held
+    against phase 4's trees and phase 5's sums; the host engine's Poseidon
+    and MSMs against the kernels' outputs.  The group is made here and
+    destroyed at the end; a collective that fails, fails the phase."""
+    import os
+    import threading
+
+    import torch.distributed as dist
+
+    from crypto_primitives_tpu_torch.models.crh.pedersen import bytes_to_bits_batch
+    from crypto_primitives_tpu_torch.models.merkle_tree.device import (
+        poseidon_tree_fns,
+        sha256_device_tree,
+        sha256_tree_fns,
+    )
+    from crypto_primitives_tpu_torch.native import engine
+    from crypto_primitives_tpu_torch.ops import poseidon_kernel
+    from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+    from crypto_primitives_tpu_torch.ops.curves_known import BLS12_381_G1, ED_ON_BLS12_377
+    from crypto_primitives_tpu_torch.parallel import mesh as pmesh
+    from crypto_primitives_tpu_torch.parallel import (
+        make_mesh,
+        sharded_fixed_base_msm,
+        sharded_fixed_base_msm_sw,
+        sharded_merkle_build_prove_all,
+        sharded_merkle_tree,
+        sharded_multipath_verify_rows,
+        sharded_permute_batch,
+    )
+
+    builder = threading.Thread(target=engine.load)  # g++ on the host while the card works
+    builder.start()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: NCCL's bootstrap on loopback
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = time.time()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=dev)
+    mesh = make_mesh(1)
+    log(f"  process group: {dist.get_backend()}, world size {dist.get_world_size()}, mesh {mesh.shape} "
+        f"({time.time() - t:.2f} s)")
+    summary = []
+
+    def call(name, fn, needs):
+        """A sharded path through drive(); its collectives and their seconds."""
+        pmesh.gathers, pmesh.gather_seconds = 0, 0.0
+        t = time.time()
+        out, counts = drive(name, fn, needs)
+        summary.append((name, time.time() - t, pmesh.gathers, pmesh.gather_seconds))
+        for k in needs:
+            launches[k] += counts[k]
+        return out
+
+    # -- the 2^20-leaf trees: root and every leaf's path against phase 4's
+    n = sha_leaves.shape[0]
+    idx = torch.arange(n, device=dev)
+    leaf_hash, compress, level, convert = sha256_tree_fns()
+    p_leaf, p_compress, p_level = poseidon_tree_fns(cfg)
+    for name, single, build, need in (
+        ("SHA-256", sha_tree, lambda: sharded_merkle_build_prove_all(
+            leaf_hash, compress, sha_leaves, mesh, leaf_convert=convert, compress_level_batch=level),
+         "sha256_compress"),
+        ("Poseidon", pos_tree, lambda: sharded_merkle_build_prove_all(
+            p_leaf, p_compress, pos_leaves, mesh, compress_level_batch=p_level), "poseidon_permute"),
+    ):
+        root, sib, auth = call(f"sharded {name} tree: build and prove all, {n} leaves", build, [need])
+        require(torch.equal(root, single.root_row()), f"the sharded {name} root == phase 4's")
+        sib1, auth1 = single.proof_rows(idx)
+        require(torch.equal(sib, sib1), f"the sharded {name} leaf siblings == phase 4's proof_rows, all {n}")
+        del sib, sib1
+        require(torch.equal(auth, auth1), f"the sharded {name} auth paths == phase 4's proof_rows, all {n}")
+        del auth, auth1
+        log(f"  sharded {name} tree: root and all {n} auth paths equal phase 4's")
+
+    # -- ShardedMerkleTree: update, verify every path, multipath
+    tree = call(f"ShardedMerkleTree (SHA-256): build, {n} leaves", lambda: sharded_merkle_tree(
+        leaf_hash, compress, sha_leaves, mesh, leaf_convert=convert, compress_level_batch=level), ["sha256_compress"])
+    upd = torch.randperm(n, device=dev, generator=gen)[:CHECK_ROWS].tolist()
+    new_digests = leaf_hash(torch.randint(0, 256, (CHECK_ROWS, 32), dtype=torch.uint8, device=dev, generator=gen))
+    call(f"ShardedMerkleTree: update_batch, {CHECK_ROWS} leaves", lambda: tree.update_batch(upd, new_digests),
+         ["sha256_compress"])
+    single = sha256_device_tree(sha_leaves, device=dev)
+    single.update_batch(upd, new_digests)
+    require(torch.equal(tree.root_row, single.root_row()), "the updated sharded root == the single-device tree's")
+    del single
+
+    def verify_all():
+        s, a = tree.proof_rows(idx)
+        ok = tree.verify_rows_batch(tree.root_row, tree.leaf_digests, idx, s, a)
+        bad = tree.verify_rows_batch(torch.zeros_like(tree.root_row), tree.leaf_digests[:64], idx[:64], s[:64],
+                                     a[:64])
+        return bool(ok.all()), bool(bad.any())
+
+    ok, bad = call(f"ShardedMerkleTree: proof_rows and verify_rows_batch, all {n} paths, and a wrong root",
+                   verify_all, ["sha256_compress"])
+    require(ok, f"every one of the {n} sharded auth paths verifies")
+    require(not bad, "a wrong root is rejected by the sharded verify")
+    sel = torch.randperm(n, device=dev, generator=gen)[:CHECK_ROWS].sort().values
+
+    def multipath():
+        ms, ma = tree.proof_rows(sel)
+        lds = tree.leaf_digests[sel]
+        wrong = tree.root_row.clone()
+        wrong[0] ^= 1
+        return [bool(sharded_multipath_verify_rows(compress, convert, root, lds, sel.tolist(), ms, ma, mesh))
+                for root in (tree.root_row, wrong)]
+
+    good, bad = call(f"sharded multipath verify, {CHECK_ROWS} leaves, right and wrong root", multipath,
+                     ["sha256_compress"])
+    require(good and not bad, f"the sharded multipath verify over {CHECK_ROWS} leaves: true, then false")
+
+    # -- the data-parallel permutation at K1's timed shape (phase 6's states)
+    half, W = n // 2, pos_tree.leaf_digests.shape[1]
+    pstates = torch.cat([torch.zeros((half, 1, W), dtype=torch.int32, device=dev),
+                         pos_tree.leaf_digests.reshape(half, 2, W)], dim=1).contiguous()
+    got = call(f"sharded permute, {half} states", lambda: sharded_permute_batch(cfg, pstates, mesh),
+               ["poseidon_permute"])
+    require(torch.equal(got, poseidon_kernel.permute(cfg, pstates)), "sharded_permute_batch == poseidon_permute")
+    del got, pstates
+
+    # -- the sharded fixed-base MSMs at phase 5's width: the first 1024
+    # generators of the 250 x 8 window, phase 5's 128-byte inputs
+    builder.join()
+    for curve, fn, kname in ((ED_ON_BLS12_377, sharded_fixed_base_msm, "msm_te"),
+                             (BLS12_381_G1, sharded_fixed_base_msm_sw, "msm_sw")):
+        params, inputs = msm_inputs[curve.name]
+        mod = fast_mod(curve)
+        bits = bytes_to_bits_batch(inputs)
+        points = [g for win in params.generators for g in win][:bits.shape[-1]]
+        shape = f"{bits.shape[0]} rows x {len(points)} points"
+        out = call(f"sharded fixed-base MSM, {curve.name}, {shape}", lambda: fn(curve, points, bits, mesh), [kname])
+        t = time.time()
+        fn(curve, points, bits, mesh)
+        torch.cuda.synchronize()
+        log(f"  again, its grouped table cached: {time.time() - t:.3f} s")
+        got = mod.to_affine(curve, out)
+        want = mod.to_affine(curve, mod.conditional_sum_grouped_auto(curve, params, bits, 3))
+        require(torch.equal(got, want), f"the sharded MSM on {curve.name} == conditional_sum_grouped_auto, affine")
+        sample = torch.randperm(bits.shape[0], generator=torch.Generator().manual_seed(SEED))[:SAMPLE]
+        eng = engine.curve_engine(curve)
+        host = eng.msm_bits(eng.pack_table(points), bits[sample].cpu().numpy())
+        require(affine_host(curve, got[sample]) == [(0, 0) if h is None else h for h in host],
+                f"the engine's msm_bits == the sharded {kname} output on {SAMPLE} rows of {curve.name}")
+        log(f"  {curve.name}: affine-equal to conditional_sum_grouped_auto on all {bits.shape[0]} rows; "
+            f"{SAMPLE} rows equal to the host engine's msm_bits")
+
+    # -- the host engine's Poseidon against K1's tree level
+    built = "built before" if engine.build_seconds is None else f"g++ build {engine.build_seconds:.2f} s"
+    log(f"  host engine (native/cpmont.cpp): {built}")
+    lower, upper = pos_tree.inner_levels[-1], pos_tree.inner_levels[-2]
+    j = torch.randperm(upper.shape[0], device=dev, generator=gen)[:ENGINE_PAIRS]
+    words = engine.poseidon_engine(cfg).two_to_one_words(lower[2 * j], lower[2 * j + 1])
+    require(torch.equal(torch.from_numpy(words), upper[j].cpu()),
+            f"the engine's Poseidon two-to-one == K1's tree level on {ENGINE_PAIRS} pairs")
+    log(f"  host engine: Poseidon two-to-one on {ENGINE_PAIRS} pairs of the Poseidon tree's bottom inner level "
+        "equals K1's next level")
+
+    dist.destroy_process_group()
+    log("  phase 12 calls (host clock, ending in a synchronize; collectives and their seconds):")
+    for name, dt, ngather, gsec in summary:
+        log(f"    {name}: {dt:.3f} s; {ngather} collectives, {gsec:.4f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing to run")
@@ -942,7 +1124,7 @@ def main() -> int:
     with Phase("phase 5: curve paths at full width"):
         torch.cuda.reset_peak_memory_stats()
         window = Window(*PEDERSEN_WINDOW)
-        main_shapes = {}
+        main_shapes, msm_inputs = {}, {}
         for curve, rows, kname in ((ED_ON_BLS12_377, TE_ROWS, "msm_te"), (BLS12_381_G1, SW_ROWS, "msm_sw")):
             t = time.time()
             crh = PedersenCRH(curve, window)
@@ -988,6 +1170,7 @@ def main() -> int:
             table, idx = curve_fast.grouped_operands(mod.device_table(params, 3, inputs.device),
                                                      bytes_to_bits_batch(inputs), 3)
             main_shapes[kname] = (curve, table, idx)
+            msm_inputs[curve.name] = (params, inputs)  # phase 12's sharded MSMs
             if curve is ED_ON_BLS12_377:  # phase 8's compressors run on the same inputs
                 pedersen_te = (window, params, cparams, inputs, rbits, digests[:, 0].clone(), comms[:, 0].clone())
             del acc, digests, comms
@@ -1613,6 +1796,10 @@ def main() -> int:
         gadget_calls.print_summary()
         log(f"  phase 10 with these gadgets in place of its {CURVE_WINDOW[0]} x {CURVE_WINDOW[1]} ones: "
             f"{t10 - t_small + time.time() - phase.t:.2f} s (limit {PHASE10_LIMIT_S})")
+
+    with Phase("phase 12: the sharded paths over NCCL at world size 1") as phase:
+        sharded_phase(cfg, leaves, sha_tree, pos_leaves, pos_tree, msm_inputs, launches, gen)
+        log(f"  phase 12: {time.time() - phase.t:.2f} s")
 
     with Phase("phase 6: times"):
         half = LEAVES // 2

@@ -12,10 +12,11 @@ import hashlib
 import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
+from crypto_primitives_tpu_torch.models.commitment import CommitmentScheme
 from crypto_primitives_tpu_torch.ops.blake2s import blake2s
 
 
-class Blake2sCommitment:
+class Blake2sCommitment(CommitmentScheme):
     RANDOMNESS_BYTES = 32
 
     def setup(self, rng):

@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import torch
 
+from crypto_primitives_tpu_torch.models.commitment import CommitmentScheme
 from crypto_primitives_tpu_torch.models.commitment.pedersen import PedersenCommitment
 from crypto_primitives_tpu_torch.models.crh.injective_map import TECompressor
 from crypto_primitives_tpu_torch.models.crh.pedersen import Window
 
 
-class PedersenCommitmentCompressor:
+class PedersenCommitmentCompressor(CommitmentScheme):
     def __init__(self, curve, window: Window, compressor=TECompressor):
         self.inner = PedersenCommitment(curve, window)
         self.compressor = compressor

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
+from crypto_primitives_tpu_torch.models.commitment import CommitmentScheme
 from crypto_primitives_tpu_torch.models.crh.pedersen import GROUP_W, PedersenCRH, PedersenParameters, Window
 from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
 
@@ -43,7 +44,7 @@ class PedersenCommitmentParameters:
         return self._crh_params
 
 
-class PedersenCommitment:
+class PedersenCommitment(CommitmentScheme):
     def __init__(self, curve, window: Window):
         self.curve = curve
         self.window = window

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
+from crypto_primitives_tpu_torch.models.crh import CRHScheme, TwoToOneCRHScheme
 from crypto_primitives_tpu_torch.models.crh.pedersen import Window, bytes_to_bits, bytes_to_bits_batch
 from crypto_primitives_tpu_torch.ops import curve_fast, msm_kernel
 from crypto_primitives_tpu_torch.ops.curve import te_to_affine
@@ -91,7 +92,7 @@ def max_chunks_per_segment(scalar_p: int) -> int:
     return c
 
 
-class BoweHopwoodCRH:
+class BoweHopwoodCRH(CRHScheme):
     def __init__(self, curve, window: Window):
         self.curve = curve
         self.window = window
@@ -167,7 +168,7 @@ class BoweHopwoodCRH:
         return te_to_affine(self.curve, acc)[..., 0, :]
 
 
-class BoweHopwoodTwoToOneCRH:
+class BoweHopwoodTwoToOneCRH(TwoToOneCRHScheme):
     """mod.rs:189-240; ``compress`` feeds the bytes of prior x-coordinates."""
 
     def __init__(self, curve, window: Window):

@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from crypto_primitives_tpu_torch.models.crh import CRHScheme, TwoToOneCRHScheme
 from crypto_primitives_tpu_torch.models.crh.pedersen import PedersenCRH, PedersenTwoToOneCRH, Window
 
 
@@ -30,7 +31,7 @@ class TECompressor:
         return aff[..., 0, :]
 
 
-class PedersenCRHCompressor:
+class PedersenCRHCompressor(CRHScheme):
     """mod.rs:33-62."""
 
     def __init__(self, curve, window: Window, compressor=TECompressor):
@@ -48,7 +49,7 @@ class PedersenCRHCompressor:
         return self.compressor.injective_map_batch(self.crh.evaluate_batch(params, inputs, device=device))
 
 
-class PedersenTwoToOneCRHCompressor:
+class PedersenTwoToOneCRHCompressor(TwoToOneCRHScheme):
     """mod.rs:64-108; ``compress`` turns prior compressed digests (field
     elements) into bytes."""
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
+from crypto_primitives_tpu_torch.models.crh import CRHScheme, TwoToOneCRHScheme
 from crypto_primitives_tpu_torch.ops.curve import affine_to_uncompressed_bytes
 from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
 
@@ -75,7 +76,7 @@ def bytes_to_bits_batch(data: torch.Tensor, nbits: int = 0) -> torch.Tensor:
     return bits
 
 
-class PedersenCRH:
+class PedersenCRH(CRHScheme):
     def __init__(self, curve, window: Window):
         self.curve = curve
         self.window = window
@@ -149,7 +150,7 @@ class PedersenCRH:
         return fast_mod(self.curve).to_affine(self.curve, acc)
 
 
-class PedersenTwoToOneCRH:
+class PedersenTwoToOneCRH(TwoToOneCRHScheme):
     """mod.rs:132-198: the halves, zero-padded into one input buffer."""
 
     def __init__(self, curve, window: Window):

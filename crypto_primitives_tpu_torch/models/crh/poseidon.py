@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from crypto_primitives_tpu_torch.models.crh import CRHScheme, TwoToOneCRHScheme
 from crypto_primitives_tpu_torch.models.sponge.poseidon import (
     PoseidonConfig,
     PoseidonSponge,
@@ -21,7 +22,7 @@ from crypto_primitives_tpu_torch.models.sponge.poseidon import (
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 
 
-class PoseidonCRH:
+class PoseidonCRH(CRHScheme):
     """Input: a list of field elements (host) or ``(..., k, W)`` Montgomery
     words (batched)."""
 
@@ -44,7 +45,7 @@ class PoseidonCRH:
         return sponge.squeeze_native_field_elements(1)[..., 0, :]
 
 
-class PoseidonTwoToOneCRH:
+class PoseidonTwoToOneCRH(TwoToOneCRHScheme):
     """Input and output: single field elements."""
 
     def __init__(self, spec: FieldSpec):

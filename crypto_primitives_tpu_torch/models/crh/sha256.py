@@ -12,10 +12,11 @@ import hashlib
 
 import torch
 
+from crypto_primitives_tpu_torch.models.crh import CRHScheme, TwoToOneCRHScheme
 from crypto_primitives_tpu_torch.ops.sha256 import sha256
 
 
-class Sha256CRH:
+class Sha256CRH(CRHScheme):
     DIGEST_WIDTH = 32
 
     def setup(self, rng):
@@ -29,7 +30,7 @@ class Sha256CRH:
         return sha256(inputs, device=device)
 
 
-class Sha256TwoToOneCRH:
+class Sha256TwoToOneCRH(TwoToOneCRHScheme):
     DIGEST_WIDTH = 32
 
     def setup(self, rng):

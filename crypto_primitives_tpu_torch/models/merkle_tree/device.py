@@ -289,6 +289,12 @@ def _sha_compress_level(cur: torch.Tensor) -> torch.Tensor:
 _SHA_CONVERT = ByteDigestConverter(32).convert_batch
 
 
+def sha256_tree_fns():
+    """(leaf_hash, compress, compress_level, leaf_convert) of the SHA-256 byte
+    tree, for the sharded trees (``parallel/merkle_tree_sharded.py``)."""
+    return _sha_leaf_hash, _sha_compress, _sha_compress_level, _SHA_CONVERT
+
+
 def sha256_device_tree(leaves, device=None) -> DeviceMerkleTree:
     """leaves: ``(n, N)`` uint8.  Digests are (32,) uint8 rows; the semantics
     are the generic MerkleTree's with Sha256CRH + ByteDigestConverter."""
@@ -308,7 +314,7 @@ def sha256_device_tree(leaves, device=None) -> DeviceMerkleTree:
 # --------------------------------------------------------------------------
 
 
-def _poseidon_tree_fns(config: PoseidonConfig):
+def poseidon_tree_fns(config: PoseidonConfig):
     """(leaf_hash, compress, compress_level) for the Poseidon tree: a fresh
     sponge state with the inputs in rate slots 1.. , one permutation, the
     squeezed slot 1."""
@@ -347,7 +353,7 @@ def poseidon_device_tree(spec: FieldSpec, config: PoseidonConfig, leaf_elements,
         leaves = leaf_elements.to(dev)
     else:
         leaves = torch.from_numpy(spec.pack(list(leaf_elements))).to(dev)
-    leaf_hash, compress, compress_level = _poseidon_tree_fns(config)
+    leaf_hash, compress, compress_level = poseidon_tree_fns(config)
     return DeviceMerkleTree.build(
         leaf_hash, compress, leaves, to_host=lambda row: int(spec.unpack(row)),
         compress_level_batch=compress_level,

@@ -622,3 +622,68 @@ def test_merkle_path_circuits_on_the_card_match_cpu(cuda):
         assert card == host
         assert card[0] == card[2] == [i != bad for i in range(n)] and card[1] == [True] * n
         assert [f >= 0 for f in card[3]] == [i == bad for i in range(n)]
+
+
+def test_parallel_over_nccl_at_world_size_1(cuda):
+    """``parallel/`` on the card over NCCL at world size 1 (one card): the
+    sharded SHA-256 tree (K3), its proofs, updates, verify and multipath, the
+    sharded permute (K1) and both sharded MSMs (K4, K5) against the
+    single-device paths on the same inputs."""
+    import os
+    import random
+
+    import torch.distributed as dist
+
+    from crypto_primitives_tpu_torch.models.merkle_tree.device import sha256_device_tree, sha256_tree_fns
+    from crypto_primitives_tpu_torch.ops import curve_fast, curve_sw_fast, msm_kernel, msm_sw_kernel, poseidon_kernel
+    from crypto_primitives_tpu_torch.ops.curves_known import BLS12_381_G1, ED_ON_BLS12_377
+    from crypto_primitives_tpu_torch.parallel import (
+        make_mesh,
+        sharded_fixed_base_msm,
+        sharded_fixed_base_msm_sw,
+        sharded_merkle_build_prove_all,
+        sharded_merkle_tree,
+        sharded_multipath_verify_rows,
+        sharded_permute_batch,
+    )
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh(1)
+        gen = torch.Generator(device=dev).manual_seed(21)
+        leaves = torch.randint(0, 256, (1024, 32), dtype=torch.uint8, device=dev, generator=gen)
+        leaf_hash, compress, level, convert = sha256_tree_fns()
+        root, sib, auth = sharded_merkle_build_prove_all(leaf_hash, compress, leaves, mesh, leaf_convert=convert,
+                                                         compress_level_batch=level)
+        single = sha256_device_tree(leaves, device=dev)
+        idx = torch.arange(1024, device=dev)
+        sib1, auth1 = single.proof_rows(idx)
+        assert torch.equal(root, single.root_row()) and torch.equal(sib, sib1) and torch.equal(auth, auth1)
+        tree = sharded_merkle_tree(leaf_hash, compress, leaves, mesh, leaf_convert=convert, compress_level_batch=level)
+        new = leaf_hash(leaves[:4].flip(1).contiguous())
+        tree.update_batch([0, 9, 500, 1023], new)
+        single.update_batch([0, 9, 500, 1023], new)
+        assert torch.equal(tree.root_row, single.root_row())
+        s, a = tree.proof_rows(idx)
+        assert bool(tree.verify_rows_batch(tree.root_row, tree.leaf_digests, idx, s, a).all())
+        sel = [3, 4, 5, 100, 1000]
+        ms, ma = tree.proof_rows(sel)
+        assert bool(sharded_multipath_verify_rows(compress, convert, tree.root_row, tree.leaf_digests[sel], sel,
+                                                  ms, ma, mesh))
+
+        cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+        states = _states(BLS12_381_FR, 512, 3, 22).to(dev)
+        assert torch.equal(sharded_permute_batch(cfg, states, mesh), poseidon_kernel.permute(cfg, states))
+
+        rng = random.Random(23)
+        bits = torch.randint(0, 2, (256, 30), dtype=torch.uint8, device=dev, generator=gen)
+        for curve, fn, mod, kern in ((ED_ON_BLS12_377, sharded_fixed_base_msm, curve_fast, msm_kernel),
+                                     (BLS12_381_G1, sharded_fixed_base_msm_sw, curve_sw_fast, msm_sw_kernel)):
+            pts = [curve.rand_point(rng) for _ in range(30)]
+            table = torch.from_numpy(mod.pack_table_grouped(curve, pts, 3)).to(dev)
+            want = curve_fast.grouped_sum(kern.grouped_msm, curve, table, bits, 3)
+            assert torch.equal(mod.to_affine(curve, fn(curve, pts, bits, mesh)), mod.to_affine(curve, want))
+    finally:
+        dist.destroy_process_group()
