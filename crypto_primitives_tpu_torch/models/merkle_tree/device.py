@@ -38,6 +38,7 @@ from crypto_primitives_tpu_torch.models.sponge.poseidon import PoseidonConfig, p
 from crypto_primitives_tpu_torch.ops.curve import affine_to_uncompressed_bytes
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 from crypto_primitives_tpu_torch.ops.sha256 import sha256
+from crypto_primitives_tpu_torch.utils import profiling
 
 
 @functools.lru_cache(maxsize=256)
@@ -118,18 +119,24 @@ class DeviceMerkleTree:
         ``compress_level_batch`` compresses a whole level ``(B, D) -> (B/2, D)``
         from the contiguous pair layout (the children of node i are the
         adjacent rows 2i and 2i+1, so pairing them is a free reshape instead
-        of two strided gathers)."""
+        of two strided gathers).
+
+        Spans: ``tree.build_tree``, and inside it ``tree.convert_leaves`` and
+        one ``tree.hash_level`` a level."""
         n = int(leaves.shape[0])
         if n < 2 or n & (n - 1):
             raise ValueError("the leaf count must be a power of two, at least 2")
-        leaf_digests = leaf_hash_batch(leaves)
-        cur = compress_level_batch(leaf_convert(leaf_digests))
-        levels = [cur]
-        while cur.shape[0] > 1:
-            cur = compress_level_batch(cur)
-            levels.append(cur)
-        levels.reverse()
-        return cls(compress_batch, leaf_digests, levels, to_host, leaf_convert)
+        with profiling.annotate("tree.build_tree"):
+            leaf_digests = leaf_hash_batch(leaves)
+            with profiling.annotate("tree.convert_leaves"):
+                cur = leaf_convert(leaf_digests)
+            levels = []
+            for _ in range(n.bit_length() - 1):
+                with profiling.annotate("tree.hash_level"):
+                    cur = compress_level_batch(cur)
+                levels.append(cur)
+            levels.reverse()
+            return cls(compress_batch, leaf_digests, levels, to_host, leaf_convert)
 
     # -- accessors -------------------------------------------------------
 
@@ -153,20 +160,27 @@ class DeviceMerkleTree:
 
         indexes: (B,) leaf indexes.  Returns (leaf_sibling (B, D), auth
         (B, height-2, D) root first), the array twin of Path.auth_path
-        (reference mod.rs:547-569), one gather per level."""
+        (reference mod.rs:547-569), one gather per level.
+
+        Spans: ``tree.gather_paths``, and inside it one ``tree.gather_level``
+        a level and ``tree.stack_paths``."""
         idx = torch.as_tensor(indexes, dtype=torch.int64, device=self.device)
-        leaf_sib = self.leaf_digests.index_select(0, idx ^ 1)
-        auth = []
-        node = idx >> 1  # index in the bottom inner level
-        for level in self.inner_levels[:0:-1]:  # bottom ... level 1; the root is not in a path
-            auth.append(level.index_select(0, node ^ 1))
-            node = node >> 1
-        auth.reverse()  # root first
-        if not auth:  # 2-leaf tree: the path is just the leaf sibling
-            return leaf_sib, self.leaf_digests.new_zeros(
-                (idx.shape[0], 0) + tuple(self.leaf_digests.shape[1:])
-            )
-        return leaf_sib, torch.stack(auth, dim=1)
+        with profiling.annotate("tree.gather_paths"):
+            with profiling.annotate("tree.gather_level"):
+                leaf_sib = self.leaf_digests.index_select(0, idx ^ 1)
+            auth = []
+            node = idx >> 1  # index in the bottom inner level
+            for level in self.inner_levels[:0:-1]:  # bottom ... level 1; the root is not in a path
+                with profiling.annotate("tree.gather_level"):
+                    auth.append(level.index_select(0, node ^ 1))
+                    node = node >> 1
+            auth.reverse()  # root first
+            if not auth:  # 2-leaf tree: the path is just the leaf sibling
+                return leaf_sib, self.leaf_digests.new_zeros(
+                    (idx.shape[0], 0) + tuple(self.leaf_digests.shape[1:])
+                )
+            with profiling.annotate("tree.stack_paths"):
+                return leaf_sib, torch.stack(auth, dim=1)
 
     def generate_proof(self, index: int) -> Path:
         """Host Path (interoperates with Path.verify)."""
@@ -185,43 +199,50 @@ class DeviceMerkleTree:
         on digest rows.  ``root_canonical`` says that ``root_row`` is in
         canonical form (a root from another process); the JAX package then
         canonicalizes the recomputed root, and here every row is canonical
-        already, so both settings compare the same rows."""
+        already, so both settings compare the same rows.
+
+        Spans: ``tree.verify_paths``, and inside it ``tree.convert_leaves``,
+        then a level's sides picked (``tree.select_level``) and hashed
+        (``tree.hash_level``)."""
         dev = self.device
         idx = torch.as_tensor(indexes, dtype=torch.int64, device=dev)
-        leaf_digests, leaf_sib, auth, root_row = (
-            torch.as_tensor(x, device=dev) for x in (leaf_digests, leaf_sib, auth, root_row)
-        )
         B = idx.shape[0]
-        d = tuple(self.leaf_digests.shape[1:])
-        if tuple(leaf_digests.shape) != (B,) + d or tuple(leaf_sib.shape) != (B,) + d:
-            raise ValueError(
-                f"leaf_digests/leaf_sib must be (B, D) = {(B,) + d} digest rows (got "
-                f"{tuple(leaf_digests.shape)} / {tuple(leaf_sib.shape)}); hash raw leaves "
-                "with the tree's leaf hash first"
+        with profiling.annotate("tree.verify_paths"):
+            leaf_digests, leaf_sib, auth, root_row = (
+                torch.as_tensor(x, device=dev) for x in (leaf_digests, leaf_sib, auth, root_row)
             )
-        if auth.dim() != 2 + len(d) or auth.shape[0] != B:
-            raise ValueError(f"auth must be (B, height-2, D) as proof_rows returns (got {tuple(auth.shape)})")
+            d = tuple(self.leaf_digests.shape[1:])
+            if tuple(leaf_digests.shape) != (B,) + d or tuple(leaf_sib.shape) != (B,) + d:
+                raise ValueError(
+                    f"leaf_digests/leaf_sib must be (B, D) = {(B,) + d} digest rows (got "
+                    f"{tuple(leaf_digests.shape)} / {tuple(leaf_sib.shape)}); hash raw leaves "
+                    "with the tree's leaf hash first"
+                )
+            if auth.dim() != 2 + len(d) or auth.shape[0] != B:
+                raise ValueError(f"auth must be (B, height-2, D) as proof_rows returns (got {tuple(auth.shape)})")
 
-        def pick(cond, a, b):
-            return torch.where(cond.unsqueeze(-1), a, b)
+            def pick(cond, a, b):
+                return torch.where(cond.unsqueeze(-1), a, b)
 
-        is_left = (idx & 1) == 0
-        own = self.leaf_convert(leaf_digests)
-        sib = self.leaf_convert(leaf_sib)
-        curr = self.compress_batch(pick(is_left, own, sib), pick(is_left, sib, own))
-        node = idx >> 1
-        for level in range(auth.shape[1] - 1, -1, -1):
-            sib = auth[:, level]
-            is_left = (node & 1) == 0
-            curr = self.compress_batch(pick(is_left, curr, sib), pick(is_left, sib, curr))
-            node = node >> 1
-        if tuple(root_row.shape) != tuple(curr.shape[1:]):
-            raise ValueError(
-                f"root_row must be one digest row of shape {tuple(curr.shape[1:])} (got "
-                f"{tuple(root_row.shape)}); use canonical_root_row()/root_canonical=True for "
-                "roots from another process"
-            )
-        return (curr == root_row).all(dim=-1)
+            with profiling.annotate("tree.convert_leaves"):
+                curr = self.leaf_convert(leaf_digests)
+                sibs = [self.leaf_convert(leaf_sib)]
+            sibs += auth.unbind(1)[::-1]  # bottom up: auth is stored root first
+            node = idx
+            for sib in sibs:
+                with profiling.annotate("tree.select_level"):
+                    is_left = (node & 1) == 0
+                    left, right = pick(is_left, curr, sib), pick(is_left, sib, curr)
+                    node = node >> 1
+                with profiling.annotate("tree.hash_level"):
+                    curr = self.compress_batch(left, right)
+            if tuple(root_row.shape) != tuple(curr.shape[1:]):
+                raise ValueError(
+                    f"root_row must be one digest row of shape {tuple(curr.shape[1:])} (got "
+                    f"{tuple(root_row.shape)}); use canonical_root_row()/root_canonical=True for "
+                    "roots from another process"
+                )
+            return (curr == root_row).all(dim=-1)
 
     def multipath_verify_rows(self, root_row, leaf_digests, indexes: Sequence[int], leaf_sib, auth) -> torch.Tensor:
         """Deduplicated batch verification, the twin of MultiPath's memoized
@@ -274,7 +295,8 @@ class DeviceMerkleTree:
 
 
 def _sha_leaf_hash(leaves: torch.Tensor) -> torch.Tensor:
-    return sha256(leaves, device=leaves.device)
+    with profiling.annotate("tree.hash_leaves"):
+        return sha256(leaves, device=leaves.device)
 
 
 def _sha_compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
@@ -330,7 +352,8 @@ def poseidon_tree_fns(config: PoseidonConfig):
         return permute(config, state)[:, 1]
 
     def leaf_hash(x: torch.Tensor) -> torch.Tensor:
-        return run(x.unsqueeze(1))
+        with profiling.annotate("tree.hash_leaves"):
+            return run(x.unsqueeze(1))
 
     def compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
         return run(torch.stack([left, right], dim=1))

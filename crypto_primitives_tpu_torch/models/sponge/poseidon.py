@@ -16,6 +16,7 @@ Two tiers:
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -27,6 +28,13 @@ from crypto_primitives_tpu_torch.models.sponge.grain_lfsr import PoseidonGrainLF
 from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops import poseidon_kernel
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
+
+# Set-up counters of this process: seconds spent deriving parameters (the
+# Grain LFSR and the MDS matrix, :func:`find_poseidon_ark_and_mds`) and
+# making and uploading the kernel's schedule image (the first
+# ``PoseidonConfig.schedule_tables`` of a config on a device).
+derive_seconds = 0.0
+schedule_seconds = 0.0
 
 
 @dataclasses.dataclass(eq=False)
@@ -80,10 +88,13 @@ class PoseidonConfig:
         pre_full, the sparse rows sp_m00 / sp_v / sp_w and the folds of the
         sparse schedule, in Montgomery words) as an int32 tensor on
         ``device``, built once per device."""
+        global schedule_seconds
         key = ("schedule", str(device))
         if key not in self._tables:
+            t0 = time.perf_counter()
             n_sparse, image = poseidon_kernel.kernel_image(self)
             self._tables[key] = (n_sparse, torch.from_numpy(image.view(np.int32)).to(device))
+            schedule_seconds += time.perf_counter() - t0
         return self._tables[key]
 
 
@@ -500,6 +511,8 @@ def find_poseidon_ark_and_mds(
 ):
     """Derive (ark, mds) from the Grain LFSR; mds is the Cauchy matrix
     1/(x_i + y_j) (src/sponge/poseidon/traits.rs:105-146)."""
+    global derive_seconds
+    t0 = time.perf_counter()
     p = spec.p
     t = rate + 1
     lfsr = PoseidonGrainLFSR(False, spec.nbits, t, full_rounds, partial_rounds)
@@ -512,6 +525,7 @@ def find_poseidon_ark_and_mds(
     xs = lfsr.get_field_elements_mod_p(p, t)
     ys = lfsr.get_field_elements_mod_p(p, t)
     mds = [[pow((x + y) % p, -1, p) for y in ys] for x in xs]
+    derive_seconds += time.perf_counter() - t0
     return ark, mds
 
 

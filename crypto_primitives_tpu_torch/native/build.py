@@ -8,6 +8,10 @@ headers (``csrc/*.cuh``) and the flags,
 so an edited source is rebuilt and an unchanged one is built once per
 checkout.  Nothing builds at import time: the first :func:`load` builds.
 A failed build raises with ``nvcc``'s output; there is no fallback.
+
+Set-up counters of this process: ``build_seconds`` (wall seconds inside
+:func:`build`, ``nvcc`` included) and ``load_seconds`` (seconds spent
+loading and binding built libraries).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -61,6 +66,9 @@ SIGNATURES = {
 
 _loaded: dict = {}
 
+build_seconds = 0.0
+load_seconds = 0.0
+
 
 def nvcc_path() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -85,6 +93,8 @@ def build(names=None) -> dict:
     not built yet, one ``nvcc`` each, all at once.  Returns name -> library
     path.  ``nvcc``'s output (with ``-Xptxas -v`` register counts) is kept
     in ``build/<name>.log``."""
+    global build_seconds
+    t0 = time.perf_counter()
     names = list(SIGNATURES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths, jobs = {}, {}
@@ -104,6 +114,7 @@ def build(names=None) -> dict:
             failures.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{out}")
         else:
             os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    build_seconds += time.perf_counter() - t0
     if failures:
         raise RuntimeError("\n".join(failures))
     return paths
@@ -111,9 +122,12 @@ def build(names=None) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    global load_seconds
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        path = build([name])[name]
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(path))
         for fn, argtypes in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
@@ -121,6 +135,7 @@ def load(name: str) -> ctypes.CDLL:
         lib.cpt_error_string.argtypes = [ctypes.c_int]
         lib.cpt_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
+        load_seconds += time.perf_counter() - t0
     return lib
 
 

@@ -20,6 +20,7 @@ import torch
 from crypto_primitives_tpu_torch.native import build
 from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops import poseidon_sparse
+from crypto_primitives_tpu_torch.utils import profiling
 
 # The kernel's constant bank: a header of 16 words (p from word 0, n0 at
 # word 15), then the schedule's rows; at most 16384 words (64 KB).
@@ -70,31 +71,34 @@ def permute(config, state: torch.Tensor) -> torch.Tensor:
     """Poseidon permutation of ``state`` ``(B, t, W)`` int32 Montgomery words:
     the CUDA kernel for a CUDA tensor, :func:`permute_plain` for a CPU one.
     A (W, t) the kernel is not instantiated for makes its C entry point
-    return an error, which raises here."""
-    if state.device.type == "cpu":
-        return permute_plain(config, state)
-    if state.device.type != "cuda":
-        raise ValueError(f"poseidon_permute runs on CUDA or CPU tensors, not {state.device}")
-    spec = config.field
-    W, t = spec.num_words, config.t
-    if state.dtype != torch.int32 or state.dim() != 3 or tuple(state.shape[1:]) != (t, W):
-        raise ValueError(f"state must be int32 (B, {t}, {W}), got {state.dtype} {tuple(state.shape)}")
-    if not state.is_contiguous():
-        raise ValueError("state must be contiguous")
-    out = torch.empty_like(state)
-    if state.shape[0] == 0:
-        return out
-    n_sparse, image = config.schedule_tables(state.device)
-    if image.numel() > IMAGE_MAX_WORDS:
-        raise ValueError(f"the schedule's tables take {image.numel()} words, more than the kernel's "
-                         f"constant bank of {IMAGE_MAX_WORDS}")
-    lib = build.load("poseidon_permute")
-    err = lib.poseidon_permute(
-        state.data_ptr(), out.data_ptr(), image.data_ptr(), image.numel(), state.shape[0], W, t,
-        config.alpha, config.full_rounds, config.partial_rounds, n_sparse,
-        state.device.index or 0, torch.cuda.current_stream(state.device).cuda_stream,
-    )
-    build.check(lib, err, "poseidon_permute")
+    return an error, which raises here.
+    Span ``kernel.k1`` (``rows``: the states), on both branches."""
     global launches
-    launches += 1
-    return out
+    shape = state.shape  # read once, for the span and the launch
+    with profiling.annotate("kernel.k1", shape[0]):
+        if state.device.type == "cpu":
+            return permute_plain(config, state)
+        if state.device.type != "cuda":
+            raise ValueError(f"poseidon_permute runs on CUDA or CPU tensors, not {state.device}")
+        spec = config.field
+        W, t = spec.num_words, config.t
+        if state.dtype != torch.int32 or len(shape) != 3 or tuple(shape[1:]) != (t, W):
+            raise ValueError(f"state must be int32 (B, {t}, {W}), got {state.dtype} {tuple(shape)}")
+        if not state.is_contiguous():
+            raise ValueError("state must be contiguous")
+        out = torch.empty_like(state)
+        if shape[0] == 0:
+            return out
+        n_sparse, image = config.schedule_tables(state.device)
+        if image.numel() > IMAGE_MAX_WORDS:
+            raise ValueError(f"the schedule's tables take {image.numel()} words, more than the kernel's "
+                             f"constant bank of {IMAGE_MAX_WORDS}")
+        lib = build.load("poseidon_permute")
+        err = lib.poseidon_permute(
+            state.data_ptr(), out.data_ptr(), image.data_ptr(), image.numel(), shape[0], W, t,
+            config.alpha, config.full_rounds, config.partial_rounds, n_sparse,
+            state.device.index or 0, torch.cuda.current_stream(state.device).cuda_stream,
+        )
+        build.check(lib, err, "poseidon_permute")
+        launches += 1
+        return out

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.native import build
+from crypto_primitives_tpu_torch.utils import profiling
 
 K = (
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -138,51 +139,57 @@ def digest(msgs: torch.Tensor) -> torch.Tensor:
     """SHA-256 of a ``(B, n)`` uint8 batch of n-byte messages -> ``(B, 32)``
     uint8: one kernel launch for a CUDA tensor (16-byte loads where n is a
     multiple of 16 and the batch starts on a 16-byte boundary, byte loads
-    otherwise), :func:`digest_plain` for a CPU one."""
-    if msgs.device.type == "cpu":
-        return digest_plain(msgs)
-    if msgs.device.type != "cuda":
-        raise ValueError(f"sha256_digest runs on CUDA or CPU tensors, not {msgs.device}")
-    if msgs.dtype != torch.uint8 or msgs.dim() != 2:
-        raise ValueError(f"messages must be uint8 (B, n), got {msgs.dtype} {tuple(msgs.shape)}")
-    if not msgs.is_contiguous():
-        raise ValueError("messages must be contiguous")
-    B, n = msgs.shape
-    out = torch.empty((B, 32), dtype=torch.uint8, device=msgs.device)
-    if B == 0:
-        return out
-    kw = padding_block_kw(n)
-    lib = build.load("sha256_compress")
-    err = lib.sha256_digest(
-        msgs.data_ptr(), out.data_ptr(), B, n, kw.ctypes.data,
-        msgs.device.index or 0, torch.cuda.current_stream(msgs.device).cuda_stream,
-    )
-    build.check(lib, err, "sha256_digest")
+    otherwise), :func:`digest_plain` for a CPU one.
+    Span ``kernel.k3`` (``rows``: the messages), on both branches."""
     global launches
-    launches += 1
-    return out
+    shape = msgs.shape  # read once, for the span and the launch
+    with profiling.annotate("kernel.k3", shape[0]):
+        if msgs.device.type == "cpu":
+            return digest_plain(msgs)
+        if msgs.device.type != "cuda":
+            raise ValueError(f"sha256_digest runs on CUDA or CPU tensors, not {msgs.device}")
+        if msgs.dtype != torch.uint8 or len(shape) != 2:
+            raise ValueError(f"messages must be uint8 (B, n), got {msgs.dtype} {tuple(shape)}")
+        if not msgs.is_contiguous():
+            raise ValueError("messages must be contiguous")
+        B, n = shape
+        out = torch.empty((B, 32), dtype=torch.uint8, device=msgs.device)
+        if B == 0:
+            return out
+        kw = padding_block_kw(n)
+        lib = build.load("sha256_compress")
+        err = lib.sha256_digest(
+            msgs.data_ptr(), out.data_ptr(), B, n, kw.ctypes.data,
+            msgs.device.index or 0, torch.cuda.current_stream(msgs.device).cuda_stream,
+        )
+        build.check(lib, err, "sha256_digest")
+        launches += 1
+        return out
 
 
 def compress(words: torch.Tensor) -> torch.Tensor:
     """SHA-256 compression of ``(B, nblocks, 16)`` int32 words -> ``(B, 8)``:
-    the CUDA kernel for a CUDA tensor, :func:`compress_plain` for a CPU one."""
-    if words.device.type == "cpu":
-        return compress_plain(words)
-    if words.device.type != "cuda":
-        raise ValueError(f"sha256_compress runs on CUDA or CPU tensors, not {words.device}")
-    if words.dtype != torch.int32 or words.dim() != 3 or words.shape[2] != 16:
-        raise ValueError(f"words must be int32 (B, nblocks, 16), got {words.dtype} {tuple(words.shape)}")
-    if not words.is_contiguous() or words.data_ptr() % 16:
-        raise ValueError("words must be contiguous and 16-byte aligned")
-    out = torch.empty((words.shape[0], 8), dtype=torch.int32, device=words.device)
-    if words.shape[0] == 0:
-        return out
-    lib = build.load("sha256_compress")
-    err = lib.sha256_compress(
-        words.data_ptr(), out.data_ptr(), words.shape[0], words.shape[1],
-        words.device.index or 0, torch.cuda.current_stream(words.device).cuda_stream,
-    )
-    build.check(lib, err, "sha256_compress")
+    the CUDA kernel for a CUDA tensor, :func:`compress_plain` for a CPU one.
+    Span ``kernel.k3`` (``rows``: the messages), on both branches."""
     global launches
-    launches += 1
-    return out
+    shape = words.shape  # read once, for the span and the launch
+    with profiling.annotate("kernel.k3", shape[0]):
+        if words.device.type == "cpu":
+            return compress_plain(words)
+        if words.device.type != "cuda":
+            raise ValueError(f"sha256_compress runs on CUDA or CPU tensors, not {words.device}")
+        if words.dtype != torch.int32 or len(shape) != 3 or shape[2] != 16:
+            raise ValueError(f"words must be int32 (B, nblocks, 16), got {words.dtype} {tuple(shape)}")
+        if not words.is_contiguous() or words.data_ptr() % 16:
+            raise ValueError("words must be contiguous and 16-byte aligned")
+        out = torch.empty((shape[0], 8), dtype=torch.int32, device=words.device)
+        if shape[0] == 0:
+            return out
+        lib = build.load("sha256_compress")
+        err = lib.sha256_compress(
+            words.data_ptr(), out.data_ptr(), shape[0], shape[1],
+            words.device.index or 0, torch.cuda.current_stream(words.device).cuda_stream,
+        )
+        build.check(lib, err, "sha256_compress")
+        launches += 1
+        return out

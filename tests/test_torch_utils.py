@@ -297,15 +297,6 @@ def test_capture_writes_a_trace_with_the_span(tmp_path):
     assert "square_sum" in names
 
 
-def test_scope_timer_prints_when_enabled(capsys):
-    with profiling.scope_timer("unit", enabled=True):
-        pass
-    assert "[trace] unit:" in capsys.readouterr().out
-    with profiling.scope_timer("quiet", enabled=False):
-        pass
-    assert "quiet" not in capsys.readouterr().out
-
-
 def test_constraint_report():
     cs = ConstraintSystem(FR)
     _ = FpVar.new_witness(cs, 3) * FpVar.new_witness(cs, 5)
