@@ -1885,10 +1885,13 @@ def main() -> int:
         # the transcripts' shapes: far under one wave of the card
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         for b in (FOLD_B, SUMCHECK_B, IPA_B):
+            before = poseidon_kernel.group_launches
             ms = k1_launch_ms(b)
+            lanes = max(poseidon_kernel.GROUPS) if poseidon_kernel.group_launches > before else 1
             b_ms, b_by = bound_ms(2 * b * cfg.t * FR.num_words * 4 + image_bytes, b * poseidon_ops(cfg))
             log(f"  poseidon_permute at {b} states (a transcript's shape): {ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}), {ms / b_ms:.1f}x; {-(-b // 128)} blocks of 128 threads on {sms} SMs")
+                f"({b_by}), {ms / b_ms:.1f}x; {lanes} lanes a state, {-(-b * lanes // poseidon_kernel.THREADS)} "
+                f"blocks of {poseidon_kernel.THREADS} threads on {sms} SMs")
         log(f"  msm_sw row split k = {msm_sw_kernel.split_of(sw_curve)} ({sw_curve.name}); "
             f"split table {msm_sw_kernel.SPLIT}")
 

@@ -39,8 +39,10 @@ _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uin
 SIGNATURES = {
     "poseidon_permute": {
         # in, out, image, image_words, batch, nwords, t, alpha,
-        # full_rounds, partial_rounds, n_sparse, device, stream
-        "poseidon_permute": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _P],
+        # full_rounds, partial_rounds, n_sparse, group, device, stream
+        "poseidon_permute": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # nwords, t, device, blocks (int*)
+        "poseidon_permute_blocks_per_sm": [_I, _I, _I, _P],
     },
     "sha256_compress": {
         # words, out, batch, nblocks, device, stream

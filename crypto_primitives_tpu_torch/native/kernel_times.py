@@ -29,6 +29,14 @@ in one call: A, B, B, A.  Inputs are made on the card from a fixed seed:
                     k = 1, 2, 3, 4 and 8 threads, each held on 128 random
                     rows against the plain version at the same k
 
+K1 also runs alone at 1, 1024, 4096, 8192, 12288, 2^14, 2^15, 2^16 and 2^19
+states (t = 3, BLS12-381 Fr), and at 1024 to 12288 states over BLS12-381 Fq
+(W = 12, alpha 5, 8 + 60 rounds, keys ``fq_<batch>``), through its wrapper
+(``k1_sizes``: the time and, on a root whose wrapper chooses lanes a state,
+the G it chose) and, on such a root, through the C entry point at every G it
+is built for, each output held equal to the wrapper's: the crossover table
+behind ``choose_group``.
+
 Each time is the median of ten CUDA-event timings of single launches after a
 warm-up.  Where the root has the field probe's chain ops, it also times the
 Montgomery product alone: 132 x 8 blocks of 128 threads (eight per SM), each
@@ -45,6 +53,7 @@ has the shared block function), from this file's own native/build.py.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import random
@@ -96,11 +105,16 @@ def main() -> int:
 
     if Path(pkg.__file__).resolve().parent != root / "crypto_primitives_tpu_torch":
         raise SystemExit(f"imported {pkg.__file__}, not the package under {root}")
-    from crypto_primitives_tpu_torch.models.sponge import get_default_poseidon_parameters
+    from crypto_primitives_tpu_torch.models.sponge import (
+        PoseidonConfig,
+        find_poseidon_ark_and_mds,
+        get_default_poseidon_parameters,
+    )
     from crypto_primitives_tpu_torch.native import build
     from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel, poseidon_kernel, sha256_kernel
     from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
     from crypto_primitives_tpu_torch.ops.curves_known import BLS12_381_G1, ED_ON_BLS12_377
+    from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FQ
     from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FR as FR
     from crypto_primitives_tpu_torch.ops.sha256 import sha256
 
@@ -162,6 +176,40 @@ def main() -> int:
                     times[f"msm_sw_{curve.name}_k{k}"] = median_ms(fn, 10)
             finally:
                 msm_sw_kernel.SPLIT[key] = built
+    k1_sizes, k1_card = {}, None
+    grouped = hasattr(poseidon_kernel, "choose_group")
+    if grouped:
+        lib = build.load("poseidon_permute")
+        blocks = ctypes.c_int(0)
+        build.check(lib, lib.poseidon_permute_blocks_per_sm(8, 3, 0, ctypes.addressof(blocks)), "blocks_per_sm")
+        k1_card = {"sms": torch.cuda.get_device_properties(0).multi_processor_count, "blocks_per_sm": blocks.value}
+    fq_cfg = PoseidonConfig(BLS12_381_FQ, 8, 60, 5, *find_poseidon_ark_and_mds(BLS12_381_FQ, 2, 8, 60, 0), 2, 1)
+    fq_states = words(BLS12_381_FQ, (1 << 14, 3))
+    shapes = [("", cfg, states, b) for b in (1, 1024, 4096, 8192, 12288, 1 << 14, 1 << 15, 1 << 16, 1 << 19)]
+    shapes += [("fq_", fq_cfg, fq_states, b) for b in (1024, 4096, 8192, 12288)]
+    for tag, c, pool, batch in shapes:
+        x = pool[:batch].contiguous()
+        row = {"wrapper": median_ms(lambda: poseidon_kernel.permute(c, x), 10)}
+        if grouped:
+            W = c.field.num_words
+            want = poseidon_kernel.permute(c, x)
+            row["chosen"] = poseidon_kernel.choose_group(batch, k1_card["sms"], k1_card["blocks_per_sm"],
+                                                          poseidon_kernel.CROSSOVER[W])
+            n_sparse, image = c.schedule_tables(x.device)
+            for group in poseidon_kernel.GROUPS:
+                out = torch.empty_like(x)
+
+                def fn():
+                    err = lib.poseidon_permute(
+                        x.data_ptr(), out.data_ptr(), image.data_ptr(), image.numel(), batch, W, 3, c.alpha,
+                        c.full_rounds, c.partial_rounds, n_sparse, group, 0, torch.cuda.current_stream().cuda_stream)
+                    build.check(lib, err, "poseidon_permute")
+
+                fn()
+                if not torch.equal(out, want):
+                    raise SystemExit(f"poseidon_permute at G = {group} on {batch} states differs from the wrapper's")
+                row[f"g{group}"] = median_ms(fn, 10)
+        k1_sizes[f"{tag}{batch}"] = row
     rates = {}
     if importlib.util.find_spec("crypto_primitives_tpu_torch.ops.field_probe") is not None:
         from crypto_primitives_tpu_torch.ops import field_probe
@@ -180,7 +228,7 @@ def main() -> int:
     has_block = "compress_block" in (csrc / "sha256_compress.cu").read_text()
     print(json.dumps({
         "root": str(root), "device": torch.cuda.get_device_name(0), "nvidia_smi": smi[0] if smi else None,
-        "ms": times, "g_products_per_s": rates,
+        "ms": times, "k1_card": k1_card, "k1_sizes": k1_sizes, "g_products_per_s": rates,
         "ptxas_msm_sw": own_build.ptxas_report("msm_sw", build.BUILD_DIR),
         "sass_mont_mul_8": own_build.sass_mix(csrc / "field.cuh"),
         "sass_sha256_block": own_build.sha256_sass(csrc / "sha256_compress.cu") if has_block else None,

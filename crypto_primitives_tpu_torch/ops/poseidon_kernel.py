@@ -4,15 +4,19 @@
 compute this permutation: ``permute_rns`` (``ops/poseidon_rns_pallas.py``,
 over RNS residues) and ``permute_pallas`` (``ops/poseidon_pallas.py``, over
 16-bit digits).  On a CUDA tensor it launches ``csrc/poseidon_permute.cu``
-(one thread per state, carry-chain Montgomery products on 32-bit words, the
-sparse partial rounds of :func:`poseidon_sparse.port_schedule` and one
-reduction per output of each linear layer); on a CPU tensor it runs
-:func:`permute_plain`, the dense round function on the plain field tier.
+(carry-chain Montgomery products on 32-bit words, the sparse partial rounds
+of :func:`poseidon_sparse.port_schedule` and one reduction per output of each
+linear layer), with one thread a state once the batch fills the card and,
+below that, one group of G lanes a state (:func:`choose_group`); on a CPU
+tensor it runs :func:`permute_plain`, the dense round function on the plain
+field tier.
 Both compute the same permutation, so they agree word for word.  There is no
 fallback between the two: a CUDA tensor the kernel does not take raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -27,8 +31,53 @@ from crypto_primitives_tpu_torch.utils import profiling
 IMAGE_HEADER_WORDS = 16
 IMAGE_MAX_WORDS = 16384
 
-# Kernel launches in this process; chip_smoke.py resets and reads it.
+# Threads in a block of either kernel (kThreads in csrc/poseidon_permute.cu).
+THREADS = 128
+
+# Lanes a state the kernel is built for at t <= 3 (W = 8 and 12); every other
+# (W, t) runs one thread a state.
+GROUPS = (1, 4)
+
+# The crossover table's rule (PERF.md section 6, K1), by words an element at
+# t <= 3: below a wave of the one-thread kernel, (states per SM, G) pairs, the
+# G measured fastest up to so many states per SM, in the order of growing
+# batch.  On the H100, W = 8: G = 4 led from 1 to 8192 states (62 an SM), G = 1
+# from 12288 (93 an SM); W = 12: G = 4 led through 12288 states, the largest
+# batch measured below its wave.  G = 2 and 8 never led G = 4.
+CROSSOVER = {8: ((72, 4),), 12: ((96, 4),)}
+
+# Kernel launches in this process, and those of them made with G > 1;
+# chip_smoke.py resets and reads the first.
 launches = 0
+group_launches = 0
+
+_cards: dict = {}  # (device, W, t) -> (SMs, blocks of the one-thread kernel an SM)
+
+
+def choose_group(batch: int, sms: int, blocks_per_sm: int, crossover) -> int:
+    """Lanes a state for a launch of ``batch`` states on a card of ``sms``
+    SMs, where ``blocks_per_sm`` blocks of the one-thread kernel fit an SM: 1
+    once the batch fills a wave of that kernel, and below it the G of the
+    first (states per SM, G) pair of ``crossover`` (a :data:`CROSSOVER` row)
+    whose states per SM the batch does not pass, 1 past them all.  G never
+    rises as the batch grows."""
+    if batch >= sms * blocks_per_sm * THREADS:
+        return 1
+    for most, group in crossover:
+        if batch <= most * sms:
+            return group
+    return 1
+
+
+def _card(lib, device: int, W: int, t: int) -> tuple:
+    """(SMs, blocks of the one-thread kernel an SM) for ``device``, asked once."""
+    key = (device, W, t)
+    if key not in _cards:
+        blocks = ctypes.c_int(0)
+        err = lib.poseidon_permute_blocks_per_sm(W, t, device, ctypes.addressof(blocks))
+        build.check(lib, err, "poseidon_permute_blocks_per_sm")
+        _cards[key] = (torch.cuda.get_device_properties(device).multi_processor_count, blocks.value)
+    return _cards[key]
 
 
 def permute_plain(config, state: torch.Tensor) -> torch.Tensor:
@@ -71,9 +120,10 @@ def permute(config, state: torch.Tensor) -> torch.Tensor:
     """Poseidon permutation of ``state`` ``(B, t, W)`` int32 Montgomery words:
     the CUDA kernel for a CUDA tensor, :func:`permute_plain` for a CPU one.
     A (W, t) the kernel is not instantiated for makes its C entry point
-    return an error, which raises here.
+    return an error, which raises here.  The lanes a state come from the
+    batch and the card (:func:`choose_group`); the output is the same.
     Span ``kernel.k1`` (``rows``: the states), on both branches."""
-    global launches
+    global launches, group_launches
     shape = state.shape  # read once, for the span and the launch
     with profiling.annotate("kernel.k1", shape[0]):
         if state.device.type == "cpu":
@@ -94,11 +144,15 @@ def permute(config, state: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"the schedule's tables take {image.numel()} words, more than the kernel's "
                              f"constant bank of {IMAGE_MAX_WORDS}")
         lib = build.load("poseidon_permute")
+        device = state.device.index or 0
+        crossover = CROSSOVER.get(W, ()) if t <= 3 else ()
+        group = choose_group(shape[0], *_card(lib, device, W, t), crossover) if crossover else 1
         err = lib.poseidon_permute(
             state.data_ptr(), out.data_ptr(), image.data_ptr(), image.numel(), shape[0], W, t,
-            config.alpha, config.full_rounds, config.partial_rounds, n_sparse,
-            state.device.index or 0, torch.cuda.current_stream(state.device).cuda_stream,
+            config.alpha, config.full_rounds, config.partial_rounds, n_sparse, group,
+            device, torch.cuda.current_stream(state.device).cuda_stream,
         )
         build.check(lib, err, "poseidon_permute")
         launches += 1
+        group_launches += group > 1
         return out

@@ -62,25 +62,107 @@ def _singular_config():
     return PoseidonConfig(BLS12_381_FR, 8, 31, 17, base.ark, [[2, 3, 5], [7, 1, 1], [11, 1, 1]], 2, 1)
 
 
+def _wide_states(spec, rows, t, seed):
+    """rows x t canonical states of random words (the top word below p's),
+    the first state all p - 1."""
+    g = torch.Generator().manual_seed(seed)
+    W = spec.num_words
+    w = torch.randint(-(1 << 31), 1 << 31, (rows, t, W), dtype=torch.int64, generator=g)
+    w[..., W - 1] = torch.randint(0, spec.p >> (32 * (W - 1)), (rows, t), dtype=torch.int64, generator=g)
+    w[0] = _states(spec, 1, t, seed)[0].to(torch.int64)
+    return w.to(torch.int32)
+
+
+def _lanes_a_state(cfg, batch, device):
+    """The G the wrapper takes for ``batch`` states of ``cfg`` on ``device``."""
+    from crypto_primitives_tpu_torch.native import build
+
+    W, t = cfg.field.num_words, cfg.t
+    crossover = poseidon_kernel.CROSSOVER.get(W, ()) if t <= 3 else ()
+    if not crossover:
+        return 1, None
+    sms, blocks = poseidon_kernel._card(build.load("poseidon_permute"), device.index or 0, W, t)
+    return poseidon_kernel.choose_group(batch, sms, blocks, crossover), sms * blocks * poseidon_kernel.THREADS
+
+
+_POSEIDON_CONFIGS = {
+    "fr_rate2": lambda: get_default_poseidon_parameters(BLS12_381_FR, 2),
+    "fr_rate4": lambda: get_default_poseidon_parameters(BLS12_381_FR, 4),
+    "fr_rate8": lambda: get_default_poseidon_parameters(BLS12_381_FR, 8, True),
+    "fr_rate8_constraints": lambda: get_default_poseidon_parameters(BLS12_381_FR, 8),
+    "singular": _singular_config,
+    "jubjub_rate2": lambda: _config(JUBJUB_FR, 2, 8, 31, 17),
+    "fq_rate2": lambda: _config(BLS12_381_FQ, 2, 8, 60, 5),
+    "fr_rate1": lambda: _config(BLS12_381_FR, 1, 8, 31, 17),
+}
+
+
+def _permute_at(cfg, states, group):
+    """The C entry point at a given lanes-a-state: (its return code, the output)."""
+    from crypto_primitives_tpu_torch.native import build
+
+    lib = build.load("poseidon_permute")
+    n_sparse, image = cfg.schedule_tables(states.device)
+    out = torch.empty_like(states)
+    err = lib.poseidon_permute(
+        states.data_ptr(), out.data_ptr(), image.data_ptr(), image.numel(), states.shape[0], cfg.field.num_words,
+        cfg.t, cfg.alpha, cfg.full_rounds, cfg.partial_rounds, n_sparse, group, states.device.index or 0,
+        torch.cuda.current_stream(states.device).cuda_stream)
+    return err, out
+
+
+@pytest.mark.parametrize("batch", [1, 31, 300, 4097, 8191, 2**17 + 3])
 @pytest.mark.parametrize("which", ["fr_rate2", "fr_rate4", "fr_rate8", "jubjub_rate2", "fq_rate2", "fr_rate1",
                                    "fr_rate8_constraints", "singular"])
-def test_poseidon_kernel_matches_plain(cuda, which):
-    cfg = {
-        "fr_rate2": lambda: get_default_poseidon_parameters(BLS12_381_FR, 2),
-        "fr_rate4": lambda: get_default_poseidon_parameters(BLS12_381_FR, 4),
-        "fr_rate8": lambda: get_default_poseidon_parameters(BLS12_381_FR, 8, True),
-        "fr_rate8_constraints": lambda: get_default_poseidon_parameters(BLS12_381_FR, 8),
-        "singular": _singular_config,
-        "jubjub_rate2": lambda: _config(JUBJUB_FR, 2, 8, 31, 17),
-        "fq_rate2": lambda: _config(BLS12_381_FQ, 2, 8, 60, 5),
-        "fr_rate1": lambda: _config(BLS12_381_FR, 1, 8, 31, 17),
-    }[which]()
-    states = _states(cfg.field, 300, cfg.t, 1).to(cuda)
-    before = poseidon_kernel.launches
+def test_poseidon_kernel_matches_plain(cuda, which, batch):
+    """Every lanes-a-state the wrapper takes (G = 4 below the crossover at
+    t <= 3, with a ragged last warp at the odd batches, and G = 1 above a
+    wave and for wider states) bit for bit against the plain version."""
+    cfg = _POSEIDON_CONFIGS[which]()
+    make = _states if batch <= 4097 else _wide_states
+    states = make(cfg.field, batch, cfg.t, 1).to(cuda)
+    group, wave = _lanes_a_state(cfg, batch, cuda)
+    if cfg.t <= 3:
+        assert (group > 1) == (batch < wave)
+    before = (poseidon_kernel.launches, poseidon_kernel.group_launches)
     got = poseidon_kernel.permute(cfg, states)
-    assert poseidon_kernel.launches == before + 1
+    assert (poseidon_kernel.launches, poseidon_kernel.group_launches) == (before[0] + 1, before[1] + (group > 1))
     want = poseidon_kernel.permute_plain(cfg, states)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["fr_rate2", "jubjub_rate2", "fr_rate1", "singular", "fq_rate2"])
+def test_poseidon_kernel_every_group_matches_plain(cuda, which):
+    """Every G the kernel is built for at t <= 3, through the C entry point,
+    on a ragged batch; a G it is not built for is refused."""
+    cfg = _POSEIDON_CONFIGS[which]()
+    states = _states(cfg.field, 300, cfg.t, 3).to(cuda)
+    want = poseidon_kernel.permute_plain(cfg, states)
+    for group in poseidon_kernel.GROUPS:
+        err, got = _permute_at(cfg, states, group)
+        assert err == 0 and torch.equal(got, want), group
+    for group in (0, 2, 3, 8, 16):
+        assert _permute_at(cfg, states, group)[0] != 0, group
+
+
+def test_poseidon_group_kernel_replays_from_a_cuda_graph(cuda):
+    """A group launch captured into a CUDA graph (the bank's load, its event
+    and the kernel) replays on new states equal to the plain version."""
+    cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+    first, second = (_states(BLS12_381_FR, 4096, 3, seed).to(cuda) for seed in (5, 6))
+    assert _lanes_a_state(cfg, 4096, cuda)[0] > 1
+    static = first.clone()
+    poseidon_kernel.permute(cfg, static)  # the image and the card's shape, before the capture
+    graph = torch.cuda.CUDAGraph()
+    before = poseidon_kernel.group_launches
+    with torch.cuda.graph(graph):
+        out = poseidon_kernel.permute(cfg, static)
+    assert poseidon_kernel.group_launches == before + 1
+    for states in (second, first):
+        static.copy_(states)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, poseidon_kernel.permute_plain(cfg, states))
 
 
 def test_poseidon_kernel_refuses_what_it_does_not_take(cuda):
@@ -94,6 +176,9 @@ def test_poseidon_kernel_refuses_what_it_does_not_take(cuda):
     # cudaErrorInvalidValue raises through build.check
     with pytest.raises(RuntimeError, match="invalid argument"):
         poseidon_kernel.permute(_config(BLS12_381_FQ, 4, 8, 60, 5), _states(BLS12_381_FQ, 4, 5, 3).to(cuda))
+    # the t <= 9 build runs one thread a state only
+    wide = get_default_poseidon_parameters(BLS12_381_FR, 4)
+    assert _permute_at(wide, _states(BLS12_381_FR, 8, wide.t, 4).to(cuda), 4)[0] != 0
 
 
 @pytest.mark.parametrize("nblocks", [1, 2, 3, 5])
