@@ -17,11 +17,19 @@ Two tiers:
     the sums are made affine by a Fermat inversion in plain PyTorch.  Digests
     are ``(..., 2, W)`` Montgomery words (x, y).  ``evaluate_batch_many``
     runs N such MSMs, with their own parameters, in one call.
+
+``evaluate_batch`` opens span ``crh.pedersen``, with ``crh.bits``,
+``crh.msm`` (the window indices and K4's ``kernel.k4``) and ``crh.affine``
+inside it.  The set-up counters ``setup_seconds`` (``setup``'s generator
+powers on the host) and ``table_seconds`` (``packed_grouped``, and the first
+upload of the grouped table to each device by ``PedersenParameters.upload``)
+add up this process's seconds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Tuple
 
 import numpy as np
@@ -31,8 +39,13 @@ from crypto_primitives_tpu_torch.device import resolve_device
 from crypto_primitives_tpu_torch.models.crh import CRHScheme, TwoToOneCRHScheme
 from crypto_primitives_tpu_torch.ops.curve import affine_to_uncompressed_bytes
 from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+from crypto_primitives_tpu_torch.utils import profiling
 
 GROUP_W = 3  # window width of the grouped subset-sum tables
+
+# Set-up seconds in this process (read by the benchmark's ``crh_setup_s``)
+setup_seconds = 0.0
+table_seconds = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +67,27 @@ class PedersenParameters:
     def packed_grouped(self, w: int = GROUP_W) -> np.ndarray:
         """The (G, 2^w, 3, W) grouped word table of the flattened generators
         (window-major), for the curve's model."""
+        global table_seconds
         tables = self.__dict__.setdefault("_tables", {})
         if w not in tables:
+            t0 = time.perf_counter()
             flat = [g for win in self.generators for g in win]
             tables[w] = fast_mod(self.curve).pack_table_grouped(self.curve, flat, w)
+            table_seconds += time.perf_counter() - t0
         return tables[w]
+
+    def upload(self, device: torch.device) -> None:
+        """Put the grouped table on ``device`` ahead of the sum (the curve
+        tier's ``device_table`` keeps it there), its first upload to a device
+        timed into ``table_seconds``."""
+        global table_seconds
+        uploaded = self.__dict__.setdefault("_uploaded", set())
+        if str(device) not in uploaded:
+            self.packed_grouped(GROUP_W)
+            t0 = time.perf_counter()
+            fast_mod(self.curve).device_table(self, GROUP_W, device)
+            table_seconds += time.perf_counter() - t0
+            uploaded.add(str(device))
 
 
 def bytes_to_bits(data: bytes) -> List[bool]:
@@ -96,7 +125,11 @@ class PedersenCRH(CRHScheme):
         return [self.generator_powers(self.window.window_size, rng) for _ in range(self.window.num_windows)]
 
     def setup(self, rng) -> PedersenParameters:
-        return PedersenParameters(self.curve, self.create_generators(rng))
+        global setup_seconds
+        t0 = time.perf_counter()
+        params = PedersenParameters(self.curve, self.create_generators(rng))
+        setup_seconds += time.perf_counter() - t0
+        return params
 
     # -- evaluation --
 
@@ -128,8 +161,11 @@ class PedersenCRH(CRHScheme):
         zero bits past them would add only the identity."""
         inputs = torch.as_tensor(inputs, dtype=torch.uint8, device=resolve_device(device))
         self._check_length(inputs.shape[-1])
-        bits = bytes_to_bits_batch(inputs)
-        return fast_mod(self.curve).conditional_sum_grouped_auto(self.curve, params, bits, GROUP_W)
+        with profiling.annotate("crh.bits"):
+            bits = bytes_to_bits_batch(inputs)
+        with profiling.annotate("crh.msm"):
+            params.upload(bits.device)
+            return fast_mod(self.curve).conditional_sum_grouped_auto(self.curve, params, bits, GROUP_W)
 
     def evaluate_batch_many(self, params_list, inputs_list, device=None) -> List[torch.Tensor]:
         """N independent evaluations (their own parameters and batch shapes)
@@ -146,8 +182,10 @@ class PedersenCRH(CRHScheme):
 
     def evaluate_batch(self, params: PedersenParameters, inputs, device=None) -> torch.Tensor:
         """inputs (..., nbytes) uint8 -> affine digests (..., 2, W) Montgomery."""
-        acc = self.evaluate_batch_projective(params, inputs, device=device)
-        return fast_mod(self.curve).to_affine(self.curve, acc)
+        with profiling.annotate("crh.pedersen"):
+            acc = self.evaluate_batch_projective(params, inputs, device=device)
+            with profiling.annotate("crh.affine"):
+                return fast_mod(self.curve).to_affine(self.curve, acc)
 
 
 class PedersenTwoToOneCRH(TwoToOneCRHScheme):

@@ -10,6 +10,7 @@ mixed add-2008-hwcd addition per group, 8 carry-chain products, the indices
 staged in shared memory, table points read as 16-byte vectors); on a CPU
 tensor it runs :func:`grouped_msm_plain`, which takes the same steps in the
 same order, so the two agree word for word.  There is no fallback between them.
+Span ``kernel.k4`` (``rows``: the batch rows) covers both branches.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from crypto_primitives_tpu_torch.native import build
 from crypto_primitives_tpu_torch.ops import field as ff
+from crypto_primitives_tpu_torch.utils import profiling
 
 # Kernel launches in this process; chip_smoke.py resets and reads it.
 launches = 0
@@ -81,23 +83,24 @@ def grouped_msm(curve, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     returns a meaningless sum (its read stays inside the table).  The kernel
     reads the table in 16-byte vectors: a table that does not start on a
     16-byte boundary (a view at an odd offset) raises."""
-    if table.device.type == "cpu" and idx.device.type == "cpu":
-        return grouped_msm_plain(curve, table, idx)
-    _check_curve(curve)
-    q = curve.base
-    W = q.num_words
-    check_operands("msm_te", table, idx, W)
-    (G, E), B = table.shape[:2], idx.shape[0]
-    out = torch.empty((B, 4, W), dtype=torch.int32, device=table.device)
-    if B == 0:
-        return out
-    consts = ff.host_words(q, [q.p, q.R_mod_p])  # p, the Montgomery one
-    lib = build.load("msm_te")
-    err = lib.msm_te(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), consts.ctypes.data, q.n0_word,
-        B, G, E, W, table.device.index or 0, torch.cuda.current_stream(table.device).cuda_stream,
-    )
-    build.check(lib, err, "msm_te")
     global launches
-    launches += 1
-    return out
+    with profiling.annotate("kernel.k4", idx.shape[0]):
+        if table.device.type == "cpu" and idx.device.type == "cpu":
+            return grouped_msm_plain(curve, table, idx)
+        _check_curve(curve)
+        q = curve.base
+        W = q.num_words
+        check_operands("msm_te", table, idx, W)
+        (G, E), B = table.shape[:2], idx.shape[0]
+        out = torch.empty((B, 4, W), dtype=torch.int32, device=table.device)
+        if B == 0:
+            return out
+        consts = ff.host_words(q, [q.p, q.R_mod_p])  # p, the Montgomery one
+        lib = build.load("msm_te")
+        err = lib.msm_te(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), consts.ctypes.data, q.n0_word,
+            B, G, E, W, table.device.index or 0, torch.cuda.current_stream(table.device).cuda_stream,
+        )
+        build.check(lib, err, "msm_te")
+        launches += 1
+        return out

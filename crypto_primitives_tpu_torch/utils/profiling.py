@@ -19,8 +19,10 @@ tracing (e.g. the reference's src/sponge/poseidon/constraints.rs:38-107).
   * ``constraint_report``: constraint counts of an R1CS system.
 
 Span names start with their layer: ``tree.`` in the Merkle tree layer
-(``models/merkle_tree/device.py``), ``kernel.`` in the kernel wrappers
-(``ops/poseidon_kernel.py``, ``ops/sha256_kernel.py``).  Records are kept
+(``models/merkle_tree/device.py``), ``crh.`` in the Pedersen CRH
+(``models/crh/pedersen.py``), ``kernel.`` in the kernel wrappers
+(``ops/poseidon_kernel.py``, ``ops/sha256_kernel.py``,
+``ops/msm_kernel.py``).  Records are kept
 for the thread that opens spans; the program opens them from one thread.
 """
 
