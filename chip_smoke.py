@@ -18,7 +18,8 @@ Phases (each prints a flushed line before and after, with its seconds):
      arithmetic (csrc/field_probe.cu) against the plain field tier on edge
      values at W = 8 and W = 12; both MSM kernels at the fixed-base shapes,
      20 (msm_te) and 84, 85 and 86 groups of doubling powers; msm_te on
-     Bowe-Hopwood's signed-digit table at 20, 341 and 342 groups;
+     Bowe-Hopwood's signed-digit table at 20, 341 and 342 groups; the
+     affine step (csrc/curve_affine.cu) on every MSM kernel's sums;
   4. the hashing paths at full size: a SHA-256 and a Poseidon Merkle tree
      over 2^20 leaves each, built, proved and verified (the SHA-256 build
      launches its kernel once per hashed level);
@@ -115,8 +116,9 @@ Phases (each prints a flushed line before and after, with its seconds):
      the bound the card sets; SHA-256's byte entry at 2^19 messages of 64
      bytes (the tree's inner levels, the shape in the kernels line) and of
      80 bytes (its first inner level), and its word entry at 2^19 two-block
-     messages; poseidon_permute at the transcripts' 8192, 4096 and 1024
-     states.
+     messages; curve_affine on phase 5's ed-on-bls12-377 CRH sums (2^16 x 4
+     x 8, the shape in the kernels line) and BLS12-381 G1 ones (2^14 x 3 x
+     12); poseidon_permute at the transcripts' 8192, 4096 and 1024 states.
 Every path runs with the kernel launch counts set to 0 just before it and
 read just after; a path whose kernel did not launch fails (decrypt_batch
 runs none, as in the JAX package: it is required to launch none).  It needs CUDA and
@@ -222,6 +224,17 @@ def msm_bound(curve, table, idx):
     W = curve.base.num_words
     nbytes = idx.numel() * 4 + idx.shape[0] * curve.coords * W * 4 + table.numel() * 4
     return nbytes, idx.numel() * msm_products(curve) * 2 * (4 * W * W + W)
+
+
+def affine_bound(curve, pts):
+    """(bytes, operations) of one affine step: the points read and (x, y)
+    written once; per point the Fermat chain's squares and products (the
+    bits of p - 2 below its top, and its set bits but the top one) and the
+    two products by Z^-1, each 2 (4 W^2 + W) operations as msm_bound counts."""
+    W, e = curve.base.num_words, curve.base.p - 2
+    B = pts.numel() // (curve.coords * W)
+    products = (e.bit_length() - 1) + (bin(e).count("1") - 1) + 2
+    return B * (curve.coords + 2) * W * 4, B * products * 2 * (4 * W * W + W)
 
 
 def bound_ms(nbytes, nops):
@@ -347,15 +360,15 @@ def host_sha_root(leaves_np) -> bytes:
     return level[0]
 
 
-KERNELS = ("poseidon_permute", "sha256_compress", "msm_te", "msm_sw")
+KERNELS = ("poseidon_permute", "sha256_compress", "msm_te", "msm_sw", "curve_affine")
 # built and checked beside them, launched by no path: csrc/field_probe.cu
 PROBE_FIELDS = ("BLS12_381_FR", "BLS12_377_FR", "BLS12_381_FQ")
 
 
 def kernel_modules():
-    from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel, poseidon_kernel, sha256_kernel
+    from crypto_primitives_tpu_torch.ops import affine_kernel, msm_kernel, msm_sw_kernel, poseidon_kernel, sha256_kernel
 
-    return dict(zip(KERNELS, (poseidon_kernel, sha256_kernel, msm_kernel, msm_sw_kernel)))
+    return dict(zip(KERNELS, (poseidon_kernel, sha256_kernel, msm_kernel, msm_sw_kernel, affine_kernel)))
 
 
 def drive(name: str, fn, needs):
@@ -879,7 +892,7 @@ def main() -> int:
         get_default_poseidon_parameters,
     )
     from crypto_primitives_tpu_torch.native import build
-    from crypto_primitives_tpu_torch.ops import curve_fast, curve_sw_fast, msm_kernel, msm_sw_kernel
+    from crypto_primitives_tpu_torch.ops import affine_kernel, curve_fast, curve_sw_fast, msm_kernel, msm_sw_kernel
     from crypto_primitives_tpu_torch.ops import field_probe, fields_known, poseidon_kernel, sha256_kernel
     from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
     from crypto_primitives_tpu_torch.ops.curves_known import (
@@ -1024,9 +1037,12 @@ def main() -> int:
             name = "msm_te" if kern is msm_kernel else "msm_sw"
             errs[name] = max(errs[name], max_abs_err(got, want))
             require(torch.equal(got, want), f"{name} == plain on {curve.name}")
+            aff, want = affine_kernel.to_affine(curve, got), affine_kernel.to_affine_plain(curve, got)
+            errs["curve_affine"] = max(errs["curve_affine"], max_abs_err(aff, want))
+            require(torch.equal(aff, want), f"curve_affine == plain on {curve.name}'s {name} sums")
             split = f", k={msm_sw_kernel.split_of(curve)}" if kern is msm_sw_kernel else ""
             log(f"  {name} {curve.name} (W={curve.base.num_words}, a={'0' if curve.a == 0 else 'p-1' if curve.a == curve.base.p - 1 else curve.a - curve.base.p}{split}): "
-                f"{CHECK_ROWS} rows x {table.shape[0]} groups equal")
+                f"{CHECK_ROWS} rows x {table.shape[0]} groups equal, and their affine steps")
 
         # the fixed-base shapes: doubling-power tables of 20 groups (msm_te,
         # below its 32-group index tile) and 84, 85 and 86 groups (G mod 3 =
@@ -1124,7 +1140,7 @@ def main() -> int:
     with Phase("phase 5: curve paths at full width"):
         torch.cuda.reset_peak_memory_stats()
         window = Window(*PEDERSEN_WINDOW)
-        main_shapes, msm_inputs = {}, {}
+        main_shapes, affine_shapes, msm_inputs = {}, {}, {}
         for curve, rows, kname in ((ED_ON_BLS12_377, TE_ROWS, "msm_te"), (BLS12_381_G1, SW_ROWS, "msm_sw")):
             t = time.time()
             crh = PedersenCRH(curve, window)
@@ -1135,8 +1151,9 @@ def main() -> int:
             log(f"  {curve.name}: setup and grouped tables on the host {time.time() - t:.2f} s")
             inputs = torch.randint(0, 256, (rows, PEDERSEN_BYTES), dtype=torch.uint8, device="cuda", generator=gen)
             digests, counts = drive(f"Pedersen CRH evaluate_batch, {curve.name}, {rows} rows",
-                                    lambda: crh.evaluate_batch(params, inputs), [kname])
+                                    lambda: crh.evaluate_batch(params, inputs), [kname, "curve_affine"])
             launches[kname] += counts[kname]
+            launches["curve_affine"] += counts["curve_affine"]
             sample = torch.randperm(rows, generator=torch.Generator().manual_seed(SEED))[:SAMPLE]
             host = [crh.evaluate(params, bytes(inputs[i].cpu().numpy())) for i in sample.tolist()]
             require(affine_host(curve, digests[sample]) == [(0, 0) if h is None else h for h in host],
@@ -1146,8 +1163,9 @@ def main() -> int:
             scalars = [com.rand_randomness(pyrng) for _ in range(rows)]
             rbits = torch.from_numpy(com.randomness_to_bits(scalars)).cuda()
             comms, counts = drive(f"Pedersen commit_batch, {curve.name}, {rows} rows",
-                                  lambda: com.commit_batch(cparams, inputs, rbits), [kname])
+                                  lambda: com.commit_batch(cparams, inputs, rbits), [kname, "curve_affine"])
             launches[kname] += counts[kname]
+            launches["curve_affine"] += counts["curve_affine"]
             host = [com.commit(cparams, bytes(inputs[i].cpu().numpy()), scalars[i]) for i in sample.tolist()]
             require(affine_host(curve, comms[sample]) == [(0, 0) if h is None else h for h in host],
                     f"{SAMPLE} commitments == host commit on {curve.name}")
@@ -1170,6 +1188,7 @@ def main() -> int:
             table, idx = curve_fast.grouped_operands(mod.device_table(params, 3, inputs.device),
                                                      bytes_to_bits_batch(inputs), 3)
             main_shapes[kname] = (curve, table, idx)
+            affine_shapes[kname] = (curve, acc)  # phase 6 times the affine step on the CRH's sums
             msm_inputs[curve.name] = (params, inputs)  # phase 12's sharded MSMs
             if curve is ED_ON_BLS12_377:  # phase 8's compressors run on the same inputs
                 pedersen_te = (window, params, cparams, inputs, rbits, digests[:, 0].clone(), comms[:, 0].clone())
@@ -1265,6 +1284,7 @@ def main() -> int:
                 t = time.time()
                 out, counts = drive(path, fn, needs)
                 launches[kname] += counts[kname]
+                launches["curve_affine"] += counts["curve_affine"]
                 return out, time.time() - t, counts[kname]
 
             def record(path, n, wall, nl, msm=0.0, win=0.0, aff=0.0):
@@ -1817,9 +1837,11 @@ def main() -> int:
                                generator=gen).to(torch.int32)
         te_curve, te_table, te_idx = main_shapes["msm_te"]
         sw_curve, sw_table, sw_idx = main_shapes["msm_sw"]
+        te_sums, sw_sums = affine_shapes["msm_te"][1], affine_shapes["msm_sw"][1]
         # (kernel, plain version, input at the path's shape, kernel reps, plain
-        # reps); the MSMs' plain versions take seconds at 4096 rows and were
-        # already run warm in phase 3, so they are timed once, without warm-up
+        # reps); the MSMs' and the affine step's plain versions take about a
+        # second or more at 4096 rows and were already run warm in phase 3, so
+        # they are timed once, without warm-up
         calls = {
             "poseidon_permute": (lambda x: poseidon_kernel.permute(cfg, x),
                                  lambda x: poseidon_kernel.permute_plain(cfg, x), pstates, 10, 3),
@@ -1830,6 +1852,10 @@ def main() -> int:
                        lambda x: msm_kernel.grouped_msm_plain(te_curve, te_table, x), te_idx, 10, 1),
             "msm_sw": (lambda x: msm_sw_kernel.grouped_msm(sw_curve, sw_table, x),
                        lambda x: msm_sw_kernel.grouped_msm_plain(sw_curve, sw_table, x), sw_idx, 5, 1),
+            "curve_affine": (lambda x: affine_kernel.to_affine(te_curve, x),
+                             lambda x: affine_kernel.to_affine_plain(te_curve, x), te_sums, 20, 1),
+            "curve_affine W=12": (lambda x: affine_kernel.to_affine(sw_curve, x),
+                                  lambda x: affine_kernel.to_affine_plain(sw_curve, x), sw_sums, 20, 1),
         }
         times, plain_times = {}, {}
         for name, (kernel, plain, x, reps, plain_reps) in calls.items():
@@ -1838,7 +1864,7 @@ def main() -> int:
             # subset of its rows against the plain version on the same rows
             rows = torch.randperm(x.shape[0], device="cuda", generator=gen)[:CHECK_ROWS]
             got, want = kernel(x)[rows], plain(x[rows].contiguous())
-            kname = "sha256_compress" if name.startswith("sha256") else name
+            kname = "sha256_compress" if name.startswith("sha256") else name.split(" ")[0]
             errs[kname] = max(errs[kname], max_abs_err(got, want))
             require(torch.equal(got, want), f"{name} == plain on {CHECK_ROWS} rows of the {x.shape[0]}-row batch")
             log(f"  {name} at {x.shape[0]} rows: {CHECK_ROWS} random rows equal to the plain version")
@@ -1853,6 +1879,8 @@ def main() -> int:
             "sha256 words": (swords.numel() * 4 + half * 32, half * 2 * SHA_OPS_PER_BLOCK),
             "msm_te": msm_bound(te_curve, te_table, te_idx),
             "msm_sw": msm_bound(sw_curve, sw_table, sw_idx),
+            "curve_affine": affine_bound(te_curve, te_sums),
+            "curve_affine W=12": affine_bound(sw_curve, sw_sums),
         }
         sources = {
             "poseidon_permute": ("crypto_primitives_tpu_torch/csrc/poseidon_permute.cu",
@@ -1863,6 +1891,7 @@ def main() -> int:
             "msm_te": ("crypto_primitives_tpu_torch/csrc/msm_te.cu", "crypto_primitives_tpu/ops/msm_rns_pallas.py:360"),
             "msm_sw": ("crypto_primitives_tpu_torch/csrc/msm_sw.cu",
                        "crypto_primitives_tpu/ops/msm_sw_rns_pallas.py:423"),
+            "curve_affine": ("crypto_primitives_tpu_torch/csrc/curve_affine.cu", None),  # the JAX package: plain XLA
         }
         kernels = []
         for name in calls:

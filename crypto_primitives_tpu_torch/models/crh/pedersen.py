@@ -14,16 +14,18 @@ Two tiers:
   * batched: ``evaluate_batch``/``compress_batch`` on ``device`` (``None``
     means CUDA): the bits go through one grouped subset-sum MSM over the
     flattened window table (kernel ``msm_te`` or ``msm_sw`` on the card) and
-    the sums are made affine by a Fermat inversion in plain PyTorch.  Digests
-    are ``(..., 2, W)`` Montgomery words (x, y).  ``evaluate_batch_many``
-    runs N such MSMs, with their own parameters, in one call.
+    the sums are made affine by a Fermat inversion (kernel ``curve_affine``
+    on the card, ``ops/affine_kernel.py``).  Digests are ``(..., 2, W)``
+    Montgomery words (x, y).  ``evaluate_batch_many`` runs N such MSMs, with
+    their own parameters, in one call.
 
 ``evaluate_batch`` opens span ``crh.pedersen``, with ``crh.bits``,
 ``crh.msm`` (the window indices and K4's ``kernel.k4``) and ``crh.affine``
-inside it.  The set-up counters ``setup_seconds`` (``setup``'s generator
-powers on the host) and ``table_seconds`` (``packed_grouped``, and the first
-upload of the grouped table to each device by ``PedersenParameters.upload``)
-add up this process's seconds.
+(the affine kernel's ``kernel.affine``) inside it.  The set-up counters
+``setup_seconds`` (``setup``'s generator powers on the host) and
+``table_seconds`` (``packed_grouped``, and the first upload of the grouped
+table to each device by ``PedersenParameters.upload``) add up this process's
+seconds.
 """
 
 from __future__ import annotations

@@ -23,6 +23,10 @@ in one call: A, B, B, A.  Inputs are made on the card from a fixed seed:
   msm_te            2^16 rows x 342 groups, w = 3, ed-on-bls12-377 (the
                     Pedersen CRH at window 250 x 8 on 128-byte inputs)
   msm_sw            2^14 rows x 342 groups, w = 3, BLS12-381 G1, as built
+  curve_affine_w8, _w12   where the root has ops/affine_kernel.py: the affine
+                    step on 2^16 random projective points, ed-on-bls12-377
+                    (extended, W = 8) and BLS12-381 G1 (projective, W = 12),
+                    and its plain version on the card (curve_affine_plain_*)
   msm_sw_<curve>_k<k>  where the root's msm_sw_kernel has a SPLIT table: the
                     same shape for every build (BLS12-381 G1, Pallas, a W = 8
                     curve with a != 0, P-256) with each row split over
@@ -154,6 +158,16 @@ def main() -> int:
         "msm_sw": lambda: msm_sw_kernel.grouped_msm(BLS12_381_G1, sw_table, sw_idx),
     }
     times = {name: median_ms(fn, 10) for name, fn in calls.items()}
+    if importlib.util.find_spec("crypto_primitives_tpu_torch.ops.affine_kernel") is not None:
+        from crypto_primitives_tpu_torch.ops import affine_kernel
+
+        for curve in (ED_ON_BLS12_377, BLS12_381_G1):
+            pts = words(curve.base, (1 << 16, curve.coords))
+            W = curve.base.num_words
+            if not torch.equal(affine_kernel.to_affine(curve, pts), affine_kernel.to_affine_plain(curve, pts)):
+                raise SystemExit(f"curve_affine on {curve.name} differs from its plain version")
+            times[f"curve_affine_w{W}"] = median_ms(lambda: affine_kernel.to_affine(curve, pts), 10)
+            times[f"curve_affine_plain_w{W}"] = median_ms(lambda: affine_kernel.to_affine_plain(curve, pts), 3)
     if hasattr(msm_sw_kernel, "SPLIT"):
         from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
         from crypto_primitives_tpu_torch.ops.curves_known import PALLAS, SECP256R1

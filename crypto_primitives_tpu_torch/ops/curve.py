@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
+from crypto_primitives_tpu_torch.ops import affine_kernel
 from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 
@@ -258,13 +259,6 @@ def te_add_digits(curve: TECurveSpec, p1: torch.Tensor, p2: torch.Tensor) -> tor
     return ff.mont_mul_digits(q, torch.stack([E, G, E, F], dim=-2), torch.stack([F, H, H, G], dim=-2))
 
 
-def te_to_affine_digits(curve: TECurveSpec, pts: torch.Tensor) -> torch.Tensor:
-    """(X, Y, T, Z) -> (X/Z, Y/Z), Z inverted by Fermat: (..., 2, L)."""
-    q = curve.base
-    zi = ff.pow_const_digits(q, pts[..., 3, :], q.p - 2)
-    return ff.mont_mul_digits(q, pts[..., 0:2, :], zi.unsqueeze(-2))
-
-
 def identity(curve: TECurveSpec, shape, device) -> torch.Tensor:
     """(0 : 1 : 0 : 1) in Montgomery words, shape (..., 4, W)."""
     ident = ff.from_digits(curve._consts(torch.device(device))["identity"])
@@ -306,8 +300,9 @@ def te_sum(curve: TECurveSpec, pts: torch.Tensor) -> torch.Tensor:
 
 
 def te_to_affine(curve: TECurveSpec, pts: torch.Tensor) -> torch.Tensor:
-    """(..., 4, W) extended -> (..., 2, W) affine (x, y) Montgomery words."""
-    return ff.from_digits(te_to_affine_digits(curve, ff.to_digits(pts)))
+    """(..., 4, W) extended -> (..., 2, W) affine (x, y) Montgomery words, Z
+    inverted by Fermat (:func:`affine_kernel.to_affine`)."""
+    return affine_kernel.to_affine(curve, pts.contiguous())
 
 
 def te_double(curve: TECurveSpec, p1: torch.Tensor) -> torch.Tensor:

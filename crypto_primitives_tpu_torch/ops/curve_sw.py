@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
+from crypto_primitives_tpu_torch.ops import affine_kernel
 from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops.curve import (
     conditional_sum_digits,
@@ -296,13 +297,6 @@ def sw_add_digits(curve: SWCurveSpec, p1: torch.Tensor, p2: torch.Tensor) -> tor
     return torch.stack([X3, Y3, Z3], dim=-2)
 
 
-def sw_to_affine_digits(curve: SWCurveSpec, pts: torch.Tensor) -> torch.Tensor:
-    """(X, Y, Z) -> (X/Z, Y/Z) by Fermat; infinity (Z = 0) maps to (0, 0)."""
-    q = curve.base
-    zi = ff.pow_const_digits(q, pts[..., 2, :], q.p - 2)
-    return ff.mont_mul_digits(q, pts[..., 0:2, :], zi.unsqueeze(-2))
-
-
 def identity(curve: SWCurveSpec, shape, device) -> torch.Tensor:
     """(0 : 1 : 0) in Montgomery words, shape (..., 3, W)."""
     ident = ff.from_digits(curve._consts(torch.device(device))["identity"])
@@ -333,8 +327,9 @@ def sw_sum(curve: SWCurveSpec, pts: torch.Tensor) -> torch.Tensor:
 
 def sw_to_affine(curve: SWCurveSpec, pts: torch.Tensor) -> torch.Tensor:
     """(..., 3, W) projective -> (..., 2, W) affine Montgomery words; the
-    identity maps to (0, 0)."""
-    return ff.from_digits(sw_to_affine_digits(curve, ff.to_digits(pts)))
+    identity maps to (0, 0).  Z is inverted by Fermat
+    (:func:`affine_kernel.to_affine`)."""
+    return affine_kernel.to_affine(curve, pts.contiguous())
 
 
 def sw_double(curve: SWCurveSpec, p1: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ layouts the framework depends on:
 
 from __future__ import annotations
 
-from crypto_primitives_tpu_torch.ops.curve import TECurveSpec
+# the module, not its names: ops.curve imports utils (through its kernel
+# wrapper), so this may run while ops.curve is still being imported
+from crypto_primitives_tpu_torch.ops import curve as te
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 
 
@@ -21,7 +23,7 @@ def uncompressed_bytes_of_field(spec: FieldSpec, value: int) -> bytes:
     return spec.to_bytes_le(int(value))
 
 
-def uncompressed_bytes_of_te_point(curve: TECurveSpec, pt) -> bytes:
+def uncompressed_bytes_of_te_point(curve: te.TECurveSpec, pt) -> bytes:
     return curve.to_uncompressed_bytes(pt)
 
 
@@ -37,7 +39,7 @@ def to_uncompressed_bytes(value, spec=None) -> bytes:
             raise TypeError("an int serializes as a field element: pass its FieldSpec")
         return uncompressed_bytes_of_field(spec, value)
     if isinstance(value, tuple) and len(value) == 2:
-        if not isinstance(spec, TECurveSpec):
+        if not isinstance(spec, te.TECurveSpec):
             raise TypeError("a point serializes on a TE curve: pass its TECurveSpec")
         return uncompressed_bytes_of_te_point(spec, value)
     if isinstance(value, (list,)):

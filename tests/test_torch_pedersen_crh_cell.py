@@ -2,8 +2,10 @@
 ed-on-bls12-377) against the benchmark's plain reference
 (``portbench/reference/pedersen_ref.py``), on the CPU: seeded generators,
 8-16 rows of 128 bytes and the edge inputs, bit for bit; the reference's
-refusal of a bad base; and the CRH's spans and set-up counters under
-``torch.profiler``."""
+refusal of a bad base; the CRH's spans and set-up counters under
+``torch.profiler``; the benchmark's ``crh_affine_rows`` on a traced run.  On
+the card (marked ``cuda``, skipped without one): the configuration's program
+against the reference, through one affine launch."""
 
 import random
 
@@ -110,3 +112,57 @@ def test_spans_and_setup_counters():
     # the second call uploads nothing, and gives the same digests without the profiler
     assert torch.equal(crh.evaluate_batch(params, x, device="cpu"), out)
     assert pedersen.table_seconds == t1
+
+
+def test_crh_affine_rows_reads_the_affine_spans():
+    """The benchmark's ``crh_affine_rows`` on a traced run of the cell on the
+    CPU: 0 a job, as the affine step runs in plain PyTorch there and only a
+    kernel launch gives its ``kernel.affine`` span rows; the batch a job from
+    spans that carry rows; None for a run without such spans (a program whose
+    affine step keeps no span) or without a trace."""
+    from types import SimpleNamespace
+
+    from portbench.harness import runner
+
+    result, checks = runner.run("pedersen_crh.ed377_250x8", 2**31 + 29, 60.0, True, device="cpu",
+                                scale={"batch": 8, "check_jobs": 1, "trace_jobs": 2}, max_jobs=1)
+    assert result["correct"], checks
+    assert result["metrics"]["crh_affine_rows"] == {"value": 0.0, "unit": "rows/job"}
+    metric = loader.module("metrics", "crh_affine_rows")
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):  # two jobs, each launching the kernel on 8 points
+            with profiling.annotate("crh.pedersen"), profiling.annotate("crh.affine"):
+                with profiling.annotate("kernel.affine", 8):
+                    pass
+    assert metric.read(SimpleNamespace(trace=object())) == 8.0
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.annotate("crh.pedersen"), profiling.annotate("crh.affine"):
+            pass
+    assert metric.read(SimpleNamespace(trace=object())) is None
+    assert metric.read(SimpleNamespace(trace=None)) is None
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_program_on_the_card_equals_the_reference(cuda):
+    """The configuration's ``Program.hash`` on 256 rows on the card: digests
+    bit for bit the reference's, one affine launch, its span's ``rows``."""
+    from crypto_primitives_tpu_torch.ops import affine_kernel
+
+    cfgmod = loader.module("configs", "pedersen_crh_ed377_250x8")
+    program = cfgmod.Program(CFG, cuda)
+    program.setup(2**31 + 31)
+    x = cfgmod.make_inputs(CFG, 37, 256, cuda)
+    n0 = affine_kernel.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = program.to_host(program.hash(x))
+    assert affine_kernel.launches == n0 + 1
+    assert [s.rows for s in profiling.spans() if s.name == "kernel.affine"] == [256]
+    want = cfgmod.Reference(CFG, cuda).digests(program.bases(), x)
+    assert np.array_equal(got, want)
