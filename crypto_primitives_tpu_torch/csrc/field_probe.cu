@@ -4,8 +4,8 @@
 // field.cuh's carry chains hold their carry in the PTX carry flag between
 // separate asm statements; a chain the compiler broke would show only in the
 // values that carry through every word.  This probe runs each routine the
-// kernels use on word arrays, so tests/test_torch_cuda.py and chip_smoke.py
-// can hold it against the plain field tier (ops/field.py) on such values:
+// kernels use on word arrays, so tests/test_torch_cuda.py can hold it
+// against the plain field tier (ops/field.py) on such values:
 // 0, 1, p - 1, p - 2, R mod p, words of all ones below p.
 //
 // op (each on elements a, b < p, Montgomery form):

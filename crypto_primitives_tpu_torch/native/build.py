@@ -150,118 +150,3 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}: {lib.cpt_error_string(err).decode()}")
 
-
-_SASS_PROBE = r"""
-#include <cstdint>
-#include "%(header)s"
-extern "C" __global__ void one_mont_mul(const uint32_t* a, const uint32_t* b, const uint32_t* p,
-                                        uint32_t n0, uint32_t* r) {
-  uint32_t x[8], y[8], q[8], o[8];
-  for (int j = 0; j < 8; ++j) { x[j] = a[j]; y[j] = b[j]; q[j] = p[j]; }
-  mont_mul<8>(o, x, y, q, n0);
-  for (int j = 0; j < 8; ++j) r[j] = o[j];
-}
-"""
-
-
-_SHA_PROBE = r"""
-#include "%(source)s"
-__global__ void one_block(const uint32_t* in, uint32_t* out) {
-  uint32_t h[8], w[16];
-  for (int j = 0; j < 8; ++j) h[j] = in[j];
-  for (int j = 0; j < 16; ++j) w[j] = in[8 + j];
-  compress_block<false>(h, w, nullptr);
-  for (int j = 0; j < 8; ++j) out[j] = h[j];
-}
-__global__ void one_padding_block(const uint32_t* in, uint32_t* out,
-                                  const __grid_constant__ PadBlock pad) {
-  uint32_t h[8];
-  for (int j = 0; j < 8; ++j) h[j] = in[j];
-  compress_block<true>(h, nullptr, pad.kw);
-  for (int j = 0; j < 8; ++j) out[j] = h[j];
-}
-"""
-
-
-def _sass_by_function(source: str, tag: str):
-    """Compile ``source`` to an sm_90a cubin and count each kernel's SASS
-    instructions: {kernel: {"IMAD": n, "IADD3": n, "other": n, "total": n}}
-    (IMAD and IADD3 with their suffixes; NOP and BRA are not counted), keyed
-    by the name cuobjdump prints (mangled unless ``extern "C"``).  None
-    where ``cuobjdump`` is missing."""
-    import re
-
-    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
-    if not cuobjdump.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = BUILD_DIR / f"sass_probe_{tag}.cu"
-    src.write_text(source)
-    cubin = src.with_suffix(".cubin")
-    subprocess.run([nvcc_path(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-                    "-std=c++17", "-o", str(cubin), str(src)], check=True, capture_output=True)
-    sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)], check=True, capture_output=True,
-                          text=True).stdout
-    out = {}
-    for part in sass.split("Function : ")[1:]:
-        mix = {"IMAD": 0, "IADD3": 0, "other": 0}
-        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part):
-            op = m.group(1).split(".")[0]
-            if op in ("NOP", "BRA"):
-                continue
-            mix[op if op in ("IMAD", "IADD3") else "other"] += 1
-        mix["total"] = sum(mix.values())
-        out[part.split()[0]] = mix
-    return out
-
-
-def sass_mix(header: Path = CSRC / "field.cuh"):
-    """SASS instruction counts of one ``mont_mul<8>`` of ``header``,
-    compiled for sm_90a inside a kernel that only loads its operands, calls
-    it once and stores the result (the loads, stores and the kernel's exit
-    count as other).  None where ``cuobjdump`` is missing."""
-    tag = hashlib.sha256(Path(header).read_bytes()).hexdigest()[:12]
-    mixes = _sass_by_function(_SASS_PROBE % {"header": Path(header).resolve()}, f"mont_{tag}")
-    return None if mixes is None else mixes["one_mont_mul"]
-
-
-def sha256_sass(source: Path = CSRC / "sha256_compress.cu"):
-    """SASS instruction counts of one SHA-256 block of ``source``'s
-    ``compress_block``: a message block (schedule and rounds) and the fixed
-    padding block (rounds from K[r] + W[r]), each in a kernel that loads the
-    state (and the 16 words), runs the block once and stores the state.
-    None where ``cuobjdump`` is missing."""
-    tag = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:12]
-    mixes = _sass_by_function(_SHA_PROBE % {"source": Path(source).resolve()}, f"sha_{tag}")
-    if mixes is None:
-        return None
-    # the probe kernels' names are mangled (PadBlock has internal linkage)
-    return {kind: next(mix for name, mix in mixes.items() if probe in name)
-            for kind, probe in (("message_block", "one_block"), ("padding_block", "one_padding_block"))}
-
-
-def ptxas_report(name: str, build_dir: Path = BUILD_DIR) -> list:
-    """Registers, stack and spills of each kernel in ``<build_dir>/<name>.log``
-    (``-Xptxas -v``): [{"kernel": mangled name, "registers": n,
-    "stack": bytes, "spill_stores": bytes, "spill_loads": bytes}]."""
-    import re
-
-    path = Path(build_dir) / f"{name}.log"
-    if not path.exists():
-        return []
-    out, cur = [], None
-    for line in path.read_text().splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            cur = {"kernel": m.group(1)}
-            out.append(cur)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-    return out

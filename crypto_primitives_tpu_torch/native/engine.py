@@ -30,7 +30,6 @@ import functools
 import hashlib
 import os
 import subprocess
-import time
 from pathlib import Path
 from typing import List, Tuple
 
@@ -44,10 +43,6 @@ from crypto_primitives_tpu_torch.ops.field import FieldSpec, host_words
 SRC = Path(__file__).resolve().parent / "cpmont.cpp"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
-
-# g++'s seconds when this process built the library (None when it was
-# already built); chip_smoke.py prints it.
-build_seconds = None
 
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -87,17 +82,14 @@ def library_path() -> Path:
 def load() -> ctypes.CDLL:
     """The engine's library, built first if needed; raises with g++'s
     output when the build fails."""
-    global build_seconds
     path = library_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        t = time.perf_counter()
         proc = subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed on {SRC.name} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
-        build_seconds = time.perf_counter() - t
     lib = ctypes.CDLL(str(path))
     for name, (res, args) in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -42,25 +42,35 @@ is built for, each output held equal to the wrapper's: the crossover table
 behind ``choose_group``.
 
 Each time is the median of ten CUDA-event timings of single launches after a
-warm-up.  Where the root has the field probe's chain ops, it also times the
-Montgomery product alone: 132 x 8 blocks of 128 threads (eight per SM), each
-thread 1000 dependent products (``mul_chain``) or squares (``sqr_chain``) at
-W = 8 (BLS12-381 Fr) and W = 12 (BLS12-381 Fq), reported in G products/s:
-the ceiling that the field arithmetic sets for every kernel built on it.
+warm-up.  poseidon_permute, sha256_compress, sha256_64, sha256_80, msm_te and
+msm_sw each also have a ``<key>_plain`` time: the plain PyTorch version on
+the card on the first 4096 rows of the same input, the median of three calls
+after one whose output is held equal to the kernel's on those rows.  Where
+the root has the field probe's chain ops, it also times the Montgomery
+product alone: 132 x 8 blocks of 128 threads (eight per SM), each thread 1000
+dependent products (``mul_chain``) or squares (``sqr_chain``) at W = 8
+(BLS12-381 Fr) and W = 12 (BLS12-381 Fq), reported in G products/s: the
+ceiling that the field arithmetic sets for every kernel built on it.
+
 Prints one JSON line: the root, the card, its power limit, the times in ms,
-the product rates, ptxas's registers and spills for every msm_sw build, and
-the SASS instruction counts of one mont_mul<8> of the root's csrc/field.cuh
-and of one SHA-256 block of its csrc/sha256_compress.cu (where that source
-has the shared block function), from this file's own native/build.py.
+the product rates, ptxas's registers and spills (:func:`parse_ptxas` on the
+root's build logs) for every msm_sw build and for every kernel of every
+library, and the SASS instruction counts (:func:`parse_sass` on
+``cuobjdump -sass``) of one mont_mul<8> of the root's csrc/field.cuh and of
+one SHA-256 block of its csrc/sha256_compress.cu (where that source has the
+shared block function), compiled from the probes below.  No bound is
+printed: the bounds are ``portbench/roofline/``'s and PERF.md's.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import importlib.util
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -70,19 +80,130 @@ import torch
 
 HERE = Path(__file__).resolve()
 SEED = 20261017
+PLAIN_ROWS = 4096  # rows of each plain version's timing
+
+# One mont_mul<8> of a field.cuh (``%(header)s``), between the loads of its
+# operands and the store of its result.
+_SASS_PROBE = r"""
+#include <cstdint>
+#include "%(header)s"
+extern "C" __global__ void one_mont_mul(const uint32_t* a, const uint32_t* b, const uint32_t* p,
+                                        uint32_t n0, uint32_t* r) {
+  uint32_t x[8], y[8], q[8], o[8];
+  for (int j = 0; j < 8; ++j) { x[j] = a[j]; y[j] = b[j]; q[j] = p[j]; }
+  mont_mul<8>(o, x, y, q, n0);
+  for (int j = 0; j < 8; ++j) r[j] = o[j];
+}
+"""
+
+# One message block and one fixed padding block of a sha256_compress.cu's
+# ``compress_block`` (``%(source)s``), each between the loads and the store.
+_SHA_PROBE = r"""
+#include "%(source)s"
+__global__ void one_block(const uint32_t* in, uint32_t* out) {
+  uint32_t h[8], w[16];
+  for (int j = 0; j < 8; ++j) h[j] = in[j];
+  for (int j = 0; j < 16; ++j) w[j] = in[8 + j];
+  compress_block<false>(h, w, nullptr);
+  for (int j = 0; j < 8; ++j) out[j] = h[j];
+}
+__global__ void one_padding_block(const uint32_t* in, uint32_t* out,
+                                  const __grid_constant__ PadBlock pad) {
+  uint32_t h[8];
+  for (int j = 0; j < 8; ++j) h[j] = in[j];
+  compress_block<true>(h, nullptr, pad.kw);
+  for (int j = 0; j < 8; ++j) out[j] = h[j];
+}
+"""
 
 
-def _own_build():
-    """This file's native/build.py, loaded by path so that it is not the
-    --root tree's copy."""
-    spec = importlib.util.spec_from_file_location("_kernel_times_build", HERE.parent / "build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def parse_ptxas(text: str) -> list:
+    """Registers, stack and spills of each kernel in ``nvcc -Xptxas -v``
+    output: [{"kernel": mangled name, "registers": n, "stack": bytes,
+    "spill_stores": bytes, "spill_loads": bytes}], in the log's order."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
-def median_ms(fn, reps: int) -> float:
-    for _ in range(2):
+def parse_sass(text: str) -> dict:
+    """Each function's instruction mix in ``cuobjdump -sass`` output:
+    {function: {"IMAD": n, "IADD3": n, "other": n, "total": n}}, keyed by the
+    name cuobjdump prints (mangled unless ``extern "C"``).  IMAD and IADD3
+    count with their suffixes, a predicate does not change an op, and NOP
+    and BRA are not counted."""
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        mix = {"IMAD": 0, "IADD3": 0, "other": 0}
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part):
+            op = m.group(1).split(".")[0]
+            if op in ("NOP", "BRA"):
+                continue
+            mix[op if op in ("IMAD", "IADD3") else "other"] += 1
+        mix["total"] = sum(mix.values())
+        out[part.split()[0]] = mix
+    return out
+
+
+def ptxas_report(build, name: str) -> list:
+    """:func:`parse_ptxas` of ``build``'s log of ``csrc/<name>.cu``; [] where
+    there is none."""
+    path = Path(build.BUILD_DIR) / f"{name}.log"
+    return parse_ptxas(path.read_text()) if path.exists() else []
+
+
+def _sass_by_function(build, source: str, tag: str):
+    """:func:`parse_sass` of ``source`` compiled to an sm_90a cubin with
+    ``build``'s nvcc; None where ``cuobjdump`` is missing."""
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        return None
+    Path(build.BUILD_DIR).mkdir(parents=True, exist_ok=True)
+    src = Path(build.BUILD_DIR) / f"sass_probe_{tag}.cu"
+    src.write_text(source)
+    cubin = src.with_suffix(".cubin")
+    subprocess.run([build.nvcc_path(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-std=c++17", "-o", str(cubin), str(src)], check=True, capture_output=True)
+    return parse_sass(subprocess.run([str(cuobjdump), "-sass", str(cubin)], check=True, capture_output=True,
+                                     text=True).stdout)
+
+
+def sass_mix(build, header: Path):
+    """SASS mix of one ``mont_mul<8>`` of ``header`` (the loads, stores and
+    the kernel's exit count as other); None where ``cuobjdump`` is missing."""
+    tag = hashlib.sha256(Path(header).read_bytes()).hexdigest()[:12]
+    mixes = _sass_by_function(build, _SASS_PROBE % {"header": Path(header).resolve()}, f"mont_{tag}")
+    return None if mixes is None else mixes["one_mont_mul"]
+
+
+def sha256_sass(build, source: Path):
+    """SASS mix of one SHA-256 message block (schedule and rounds) and of
+    the fixed padding block (rounds from K[r] + W[r]) of ``source``'s
+    ``compress_block``; None where ``cuobjdump`` is missing."""
+    tag = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:12]
+    mixes = _sass_by_function(build, _SHA_PROBE % {"source": Path(source).resolve()}, f"sha_{tag}")
+    if mixes is None:
+        return None
+    # the probe kernels' names are mangled (PadBlock has internal linkage)
+    return {kind: next(mix for name, mix in mixes.items() if probe in name)
+            for kind, probe in (("message_block", "one_block"), ("padding_block", "one_padding_block"))}
+
+
+def median_ms(fn, reps: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -102,7 +223,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
-    own_build = _own_build()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
     import crypto_primitives_tpu_torch as pkg
@@ -158,6 +278,19 @@ def main() -> int:
         "msm_sw": lambda: msm_sw_kernel.grouped_msm(BLS12_381_G1, sw_table, sw_idx),
     }
     times = {name: median_ms(fn, 10) for name, fn in calls.items()}
+    plains = {
+        "poseidon_permute": (lambda x: poseidon_kernel.permute_plain(cfg, x), states),
+        "sha256_compress": (sha256_kernel.compress_plain, sha),
+        "sha256_64": (sha256_kernel.digest_plain, sha_msgs[64]),
+        "sha256_80": (sha256_kernel.digest_plain, sha_msgs[80]),
+        "msm_te": (lambda x: msm_kernel.grouped_msm_plain(ED_ON_BLS12_377, te_table, x), te_idx),
+        "msm_sw": (lambda x: msm_sw_kernel.grouped_msm_plain(BLS12_381_G1, sw_table, x), sw_idx),
+    }
+    for name, (plain, x) in plains.items():
+        rows = x[:PLAIN_ROWS].contiguous()
+        if not torch.equal(calls[name]()[:PLAIN_ROWS], plain(rows)):
+            raise SystemExit(f"{name}'s plain version differs from the kernel on the first {PLAIN_ROWS} rows")
+        times[f"{name}_plain"] = median_ms(lambda: plain(rows), 3, warmup=0)
     if importlib.util.find_spec("crypto_primitives_tpu_torch.ops.affine_kernel") is not None:
         from crypto_primitives_tpu_torch.ops import affine_kernel
 
@@ -243,9 +376,10 @@ def main() -> int:
     print(json.dumps({
         "root": str(root), "device": torch.cuda.get_device_name(0), "nvidia_smi": smi[0] if smi else None,
         "ms": times, "k1_card": k1_card, "k1_sizes": k1_sizes, "g_products_per_s": rates,
-        "ptxas_msm_sw": own_build.ptxas_report("msm_sw", build.BUILD_DIR),
-        "sass_mont_mul_8": own_build.sass_mix(csrc / "field.cuh"),
-        "sass_sha256_block": own_build.sha256_sass(csrc / "sha256_compress.cu") if has_block else None,
+        "ptxas_msm_sw": ptxas_report(build, "msm_sw"),
+        "ptxas": {name: ptxas_report(build, name) for name in build.SIGNATURES},
+        "sass_mont_mul_8": sass_mix(build, csrc / "field.cuh"),
+        "sass_sha256_block": sha256_sass(build, csrc / "sha256_compress.cu") if has_block else None,
     }), flush=True)
     return 0
 

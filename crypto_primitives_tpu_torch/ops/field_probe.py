@@ -3,9 +3,9 @@
 ``field_ops`` launches ``csrc/field_probe.cu``, which applies one routine of
 ``csrc/field.cuh`` (the carry-chain product, the lazy sums of products with
 one reduction, add, sub) to each pair of elements; ``field_ops_plain`` is the
-same function on the plain field tier.  No path of the port runs it: tests
-and ``chip_smoke.py`` hold the two equal on edge values (``edge_values``),
-where a broken carry chain would show.  Its two chain ops (``iters``
+same function on the plain field tier.  No path of the port runs it: the
+card tests (``tests/test_torch_cuda.py``) hold the two equal on edge values
+(``edge_values``), where a broken carry chain would show.  Its two chain ops (``iters``
 dependent products per element) time the product alone
 (``native/kernel_times.py``).
 """

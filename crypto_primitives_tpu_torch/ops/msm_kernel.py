@@ -21,7 +21,8 @@ from crypto_primitives_tpu_torch.native import build
 from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.utils import profiling
 
-# Kernel launches in this process; chip_smoke.py resets and reads it.
+# Kernel launches in this process; the benchmark's programs and the card
+# tests read it.
 launches = 0
 
 

@@ -32,7 +32,8 @@ from crypto_primitives_tpu_torch.ops.msm_kernel import check_operands
 # tensors.
 SPLIT = {(8, True): 4, (8, False): 3, (9, False): 3, (12, True): 3}
 
-# Kernel launches in this process; chip_smoke.py resets and reads it.
+# Kernel launches in this process; the benchmark's programs and the card
+# tests read it.
 launches = 0
 
 

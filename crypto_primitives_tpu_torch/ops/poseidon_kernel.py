@@ -46,8 +46,8 @@ GROUPS = (1, 4)
 # batch measured below its wave.  G = 2 and 8 never led G = 4.
 CROSSOVER = {8: ((72, 4),), 12: ((96, 4),)}
 
-# Kernel launches in this process, and those of them made with G > 1;
-# chip_smoke.py resets and reads the first.
+# Kernel launches in this process, and those of them made with G > 1; the
+# benchmark's programs read the first, the card tests both.
 launches = 0
 group_launches = 0
 

@@ -48,7 +48,8 @@ H0 = (
 
 M32 = 0xFFFFFFFF
 
-# Kernel launches in this process; chip_smoke.py resets and reads it.
+# Kernel launches in this process; the benchmark's programs and the card
+# tests read it.
 launches = 0
 
 

@@ -9,23 +9,16 @@ the caller makes (``torch.distributed.init_process_group``: NCCL for CUDA
 tensors, gloo for CPU ones).  :func:`make_mesh` starts no group itself.
 
 The sharded paths gather with the list form of ``all_gather`` and assemble
-per-row results with one ``all_reduce``; :data:`gathers` and
-:data:`gather_seconds` count those collectives and their host-clock time
-(the device synchronised before and after a collective on CUDA tensors).
+per-row results with one ``all_reduce``.  ``tests/test_torch_parallel.py``
+runs them over gloo at 1, 2 and 4 ranks, and ``tests/test_torch_cuda.py``
+over NCCL at world size 1 on a card.
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-
-# Collectives run by the sharded paths in this process and their seconds;
-# chip_smoke.py resets and reads both.
-gathers = 0
-gather_seconds = 0.0
 
 
 def make_mesh(n_devices: int | None = None, axis_name: str = "data", device_type: str | None = None) -> DeviceMesh:
@@ -48,26 +41,13 @@ def shard_of(mesh: DeviceMesh, axis_name: str = "data") -> tuple:
     return mesh.get_local_rank(axis_name), dist.get_world_size(group), group
 
 
-def _timed(x: torch.Tensor, run):
-    global gathers, gather_seconds
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-    t = time.perf_counter()
-    out = run()
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-    gather_seconds += time.perf_counter() - t
-    gathers += 1
-    return out
-
-
 def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis_name: str = "data") -> torch.Tensor:
     """Every rank's ``x`` stacked in rank order: ``(D,) + x.shape``, on
     ``x``'s device."""
     _, size, group = shard_of(mesh, axis_name)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(size)]
-    _timed(x, lambda: dist.all_gather(parts, x, group=group))
+    dist.all_gather(parts, x, group=group)
     return torch.stack(parts)
 
 
@@ -78,5 +58,5 @@ def all_reduce_sum(x: torch.Tensor, mesh: DeviceMesh, axis_name: str = "data") -
     _, _, group = shard_of(mesh, axis_name)
     if not x.is_contiguous():
         raise ValueError("all_reduce_sum needs a contiguous tensor")
-    _timed(x, lambda: dist.all_reduce(x, group=group))
+    dist.all_reduce(x, group=group)
     return x

@@ -10,7 +10,11 @@ compressors, the fold argument and the IPA prover on the card against the
 CPU; the sumcheck prover's CUDA graph against the eager prover; Blake2s
 (the PRFs and the commitment) and the R1CS checks (``check_satisfied_device``,
 the batched small-domain and Montgomery checks, ``which_unsatisfied``) on
-the card against the CPU, tampered and not.
+the card against the CPU, tampered and not; the Merkle path circuits and
+``parallel/`` over NCCL at world size 1; the pinned Poseidon sponge vector,
+the Pedersen commitment, a Pedersen tree and an ElGamal circuit over
+BLS12-377 Fr on the card; and, for each public path, the kernels it launches
+there (``test_path_launches_its_kernels``).
 
 Every test here needs a CUDA device and skips without one.  On a machine with
 a card (and without JAX, which tests/conftest.py imports):
@@ -30,7 +34,13 @@ from crypto_primitives_tpu_torch.models.sponge import (
     get_default_poseidon_parameters,
 )
 from crypto_primitives_tpu_torch.ops import poseidon_kernel, sha256_kernel
-from crypto_primitives_tpu_torch.ops.fields_known import BLS12_381_FQ, BLS12_381_FR, JUBJUB_FR
+from crypto_primitives_tpu_torch.ops.fields_known import (
+    BLS12_377_FR,
+    BLS12_381_FQ,
+    BLS12_381_FR,
+    ED_ON_BLS12_377_FR,
+    JUBJUB_FR,
+)
 from crypto_primitives_tpu_torch.ops.sha256 import sha256
 
 pytestmark = pytest.mark.cuda
@@ -94,6 +104,8 @@ _POSEIDON_CONFIGS = {
     "jubjub_rate2": lambda: _config(JUBJUB_FR, 2, 8, 31, 17),
     "fq_rate2": lambda: _config(BLS12_381_FQ, 2, 8, 60, 5),
     "fr_rate1": lambda: _config(BLS12_381_FR, 1, 8, 31, 17),
+    "bls12_377_fr_rate2": lambda: _config(BLS12_377_FR, 2, 8, 31, 17),
+    "ed377_fr_rate2": lambda: _config(ED_ON_BLS12_377_FR, 2, 8, 31, 17),
 }
 
 
@@ -113,7 +125,7 @@ def _permute_at(cfg, states, group):
 
 @pytest.mark.parametrize("batch", [1, 31, 300, 4097, 8191, 2**17 + 3])
 @pytest.mark.parametrize("which", ["fr_rate2", "fr_rate4", "fr_rate8", "jubjub_rate2", "fq_rate2", "fr_rate1",
-                                   "fr_rate8_constraints", "singular"])
+                                   "fr_rate8_constraints", "singular", "bls12_377_fr_rate2", "ed377_fr_rate2"])
 def test_poseidon_kernel_matches_plain(cuda, which, batch):
     """Every lanes-a-state the wrapper takes (G = 4 below the crossover at
     t <= 3, with a ragged last warp at the odd batches, and G = 1 above a
@@ -656,6 +668,35 @@ def test_r1cs_checks_on_the_card_match_cpu(cuda):
     assert results[0][1:] == ([True] * 6, [i != 2 for i in range(6)])
 
 
+def test_curve_gadget_circuit_checked_on_the_card(cuda):
+    """An ElGamal encryption circuit over ed-on-bls12-377 (constraint field
+    BLS12-377 Fr), synthesised on the host and equal to the native encrypt:
+    check_satisfied_device on the card agrees with the CPU, true, then false
+    once the message's x witness is changed."""
+    import random
+
+    from crypto_primitives_tpu_torch.models.encryption import ElGamal
+    from crypto_primitives_tpu_torch.ops.curves_known import ED_ON_BLS12_377 as ed
+    from crypto_primitives_tpu_torch.r1cs import ConstraintSystem
+    from crypto_primitives_tpu_torch.r1cs.device_check import check_satisfied_device
+    from crypto_primitives_tpu_torch.r1cs.gadgets.curve import TEAffineVar
+    from crypto_primitives_tpu_torch.r1cs.gadgets.elgamal import ElGamalEncGadget
+
+    scheme = ElGamal(ed)
+    rng = random.Random(39)
+    params = scheme.setup(rng)
+    pk, _ = scheme.keygen(params, rng)
+    msg, r = ed.rand_point(rng), scheme.rand_randomness(rng)
+    cs = ConstraintSystem(ed.base)
+    g = ElGamalEncGadget(ed)
+    out = g.encrypt(cs, params, TEAffineVar.new_witness(cs, ed, msg), g.randomness_bits(cs, r),
+                    TEAffineVar.new_witness(cs, ed, pk))
+    assert out.value == scheme.encrypt(params, pk, msg, r)
+    assert check_satisfied_device(cs, device=cuda) is check_satisfied_device(cs, device="cpu") is True
+    cs.assignments[1] = (cs.assignments[1] + 1) % ed.base.p  # the first witness: the message's x
+    assert check_satisfied_device(cs, device=cuda) is check_satisfied_device(cs, device="cpu") is False
+
+
 def test_merkle_path_circuits_on_the_card_match_cpu(cuda):
     """The batched Merkle membership circuits: PathVar (N = 8, a 16-leaf
     Poseidon tree; the Montgomery check) and BytePathVar (N = 4, a 4-leaf
@@ -713,7 +754,7 @@ def test_parallel_over_nccl_at_world_size_1(cuda):
     """``parallel/`` on the card over NCCL at world size 1 (one card): the
     sharded SHA-256 tree (K3), its proofs, updates, verify and multipath, the
     sharded permute (K1) and both sharded MSMs (K4, K5) against the
-    single-device paths on the same inputs."""
+    single-device paths on the same inputs, each launching its kernel."""
     import os
     import random
 
@@ -740,8 +781,10 @@ def test_parallel_over_nccl_at_world_size_1(cuda):
         gen = torch.Generator(device=dev).manual_seed(21)
         leaves = torch.randint(0, 256, (1024, 32), dtype=torch.uint8, device=dev, generator=gen)
         leaf_hash, compress, level, convert = sha256_tree_fns()
+        before = sha256_kernel.launches
         root, sib, auth = sharded_merkle_build_prove_all(leaf_hash, compress, leaves, mesh, leaf_convert=convert,
                                                          compress_level_batch=level)
+        assert sha256_kernel.launches > before
         single = sha256_device_tree(leaves, device=dev)
         idx = torch.arange(1024, device=dev)
         sib1, auth1 = single.proof_rows(idx)
@@ -760,7 +803,10 @@ def test_parallel_over_nccl_at_world_size_1(cuda):
 
         cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
         states = _states(BLS12_381_FR, 512, 3, 22).to(dev)
-        assert torch.equal(sharded_permute_batch(cfg, states, mesh), poseidon_kernel.permute(cfg, states))
+        before = poseidon_kernel.launches
+        got = sharded_permute_batch(cfg, states, mesh)
+        assert poseidon_kernel.launches > before
+        assert torch.equal(got, poseidon_kernel.permute(cfg, states))
 
         rng = random.Random(23)
         bits = torch.randint(0, 2, (256, 30), dtype=torch.uint8, device=dev, generator=gen)
@@ -768,7 +814,351 @@ def test_parallel_over_nccl_at_world_size_1(cuda):
                                      (BLS12_381_G1, sharded_fixed_base_msm_sw, curve_sw_fast, msm_sw_kernel)):
             pts = [curve.rand_point(rng) for _ in range(30)]
             table = torch.from_numpy(mod.pack_table_grouped(curve, pts, 3)).to(dev)
+            before = kern.launches
+            got = fn(curve, pts, bits, mesh)
+            assert kern.launches > before
             want = curve_fast.grouped_sum(kern.grouped_msm, curve, table, bits, 3)
-            assert torch.equal(mod.to_affine(curve, fn(curve, pts, bits, mesh)), mod.to_affine(curve, want))
+            assert torch.equal(mod.to_affine(curve, got), mod.to_affine(curve, want))
     finally:
         dist.destroy_process_group()
+
+
+# The BLS12-381 Fr sponge's pinned output: absorb [0, 1, 2], squeeze 3
+# (tests/test_poseidon.py:121-129; the reference's src/sponge/poseidon/mod.rs:381-404).
+_POSEIDON_PINNED = [
+    40442793463571304028337753002242186710310163897048962278675457993207843616876,
+    2664374461699898000291153145224099287711224021716202960480903840045233645301,
+    50191078828066923662070228256530692951801504043422844038937334196346054068797,
+]
+
+
+def test_pinned_poseidon_sponge_vector_on_the_card(cuda):
+    """The pinned vector on every row of a sponge batch on the card (K1)."""
+    from crypto_primitives_tpu_torch.models.sponge import PoseidonSpongeBatch
+
+    sponge = PoseidonSpongeBatch(get_default_poseidon_parameters(BLS12_381_FR, 2), batch_shape=(4,), device=cuda)
+    before = poseidon_kernel.launches
+    sponge.absorb(torch.from_numpy(BLS12_381_FR.pack([[0, 1, 2]] * 4)).to(cuda))
+    out = sponge.squeeze_native_field_elements(3)
+    assert poseidon_kernel.launches > before and out.device.type == "cuda"
+    assert [[int(v) for v in row] for row in BLS12_381_FR.unpack(out.cpu())] == [_POSEIDON_PINNED] * 4
+
+
+@pytest.mark.parametrize("name", ["ED_ON_BLS12_377", "BLS12_381_G1"])
+def test_pedersen_commitment_on_the_card_matches_cpu(cuda, name):
+    """commit_batch on the card (two grouped MSMs and the affine step) equals
+    the same on the CPU on every row, and the host commit on three; zero and
+    p - 1 randomness included."""
+    import random
+
+    from crypto_primitives_tpu_torch.models.commitment import PedersenCommitment
+    from crypto_primitives_tpu_torch.models.crh import Window
+    from crypto_primitives_tpu_torch.ops import curves_known
+
+    curve = getattr(curves_known, name)
+    com = PedersenCommitment(curve, Window(6, 40))
+    params = com.setup(random.Random(24))
+    rng = random.Random(25)
+    scalars = [com.rand_randomness(rng) for _ in range(298)] + [0, curve.scalar.p - 1]
+    bits = torch.from_numpy(com.randomness_to_bits(scalars))
+    inputs = torch.randint(0, 256, (300, 30), dtype=torch.uint8, generator=torch.Generator().manual_seed(25))
+    got = com.commit_batch(params, inputs.to(cuda), bits.to(cuda), device=cuda)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), com.commit_batch(params, inputs, bits, device="cpu"))
+    assert [tuple(int(v) for v in r) for r in curve.base.unpack(got[:3].cpu())] == \
+        [com.commit(params, bytes(inputs[i].numpy()), scalars[i]) for i in range(3)]
+
+
+def _pedersen_tree(leaves, device):
+    """A Pedersen tree over JubJub (tests/test_merkle_pedersen.py:28-43: leaf
+    window 4 x 16 on 8-byte leaves, two-to-one window 4 x 256), with the
+    config and parameters that verify its host paths."""
+    import random
+
+    from crypto_primitives_tpu_torch.models.crh import PedersenCRH, PedersenTwoToOneCRH, Window
+    from crypto_primitives_tpu_torch.models.merkle_tree import (
+        MerkleTreeConfig,
+        PointDigestDomain,
+        PointToBytesDigestConverter,
+    )
+    from crypto_primitives_tpu_torch.models.merkle_tree.device import pedersen_device_tree
+    from crypto_primitives_tpu_torch.ops.curves_known import JUBJUB
+
+    leaf_crh, two = PedersenCRH(JUBJUB, Window(4, 16)), PedersenTwoToOneCRH(JUBJUB, Window(4, 256))
+    rng = random.Random(77)
+    lp, tp = leaf_crh.setup(rng), two.setup(rng)
+    tree = pedersen_device_tree(JUBJUB, lp, tp, Window(4, 16), Window(4, 256), leaves, device=device)
+    config = MerkleTreeConfig(leaf_crh, two, PointDigestDomain(JUBJUB), PointDigestDomain(JUBJUB),
+                              PointToBytesDigestConverter(JUBJUB))
+    return tree, config, lp, tp
+
+
+def test_pedersen_tree_on_the_card_matches_cpu(cuda):
+    """A 32-leaf Pedersen tree built on the card (K4, the affine step) equals
+    the CPU's level for level; every path verifies on the card, a wrong root
+    does not, and a host path reaches the root."""
+    from crypto_primitives_tpu_torch.ops import msm_kernel
+
+    leaves = torch.randint(0, 256, (32, 8), dtype=torch.uint8, generator=torch.Generator().manual_seed(27))
+    before = msm_kernel.launches
+    tree, config, lp, tp = _pedersen_tree(leaves.to(cuda), cuda)
+    assert msm_kernel.launches > before
+    host = _pedersen_tree(leaves, "cpu")[0]
+    assert tree.root() == host.root()
+    assert torch.equal(tree.leaf_digests.cpu(), host.leaf_digests)
+    assert len(tree.inner_levels) == len(host.inner_levels)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(tree.inner_levels, host.inner_levels))
+    idx = torch.arange(32, device=cuda)
+    sib, auth = tree.proof_rows(idx)
+    assert bool(tree.verify_rows_batch(tree.root_row(), tree.leaf_digests, idx, sib, auth).all())
+    wrong = tree.root_row().clone()
+    wrong[0] ^= 1
+    assert not bool(tree.verify_rows_batch(wrong, tree.leaf_digests, idx, sib, auth).any())
+    assert tree.generate_proof(5).verify(config, lp, tp, tree.root(), bytes(leaves[5].numpy()))
+
+
+# The public paths on the card, for test_path_launches_its_kernels: each
+# entry makes its inputs (not counted) and returns the call that is counted.
+
+def _sha256_tree_path(op):
+    def prepare(dev):
+        from crypto_primitives_tpu_torch.models.merkle_tree.device import sha256_device_tree
+
+        g = torch.Generator(device=dev).manual_seed(28)
+        leaves = torch.randint(0, 256, (1024, 32), dtype=torch.uint8, device=dev, generator=g)
+        if op == "build":
+            return lambda: sha256_device_tree(leaves, device=dev)
+        tree = sha256_device_tree(leaves, device=dev)
+        idx = torch.arange(0, 1024, 7, device=dev)
+
+        def verify():
+            sib, auth = tree.proof_rows(idx)
+            assert bool(tree.verify_rows_batch(tree.root_row(), tree.leaf_digests[idx], idx, sib, auth).all())
+            assert bool(tree.multipath_verify_rows(tree.root_row(), tree.leaf_digests[idx], idx.tolist(), sib,
+                                                   auth))
+        return verify
+    return prepare
+
+
+def _poseidon_tree_path(op):
+    def prepare(dev):
+        from crypto_primitives_tpu_torch.models.merkle_tree.device import poseidon_device_tree
+
+        cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+        leaves = _fr_rows((1024,), 29).to(dev)
+        if op == "build":
+            return lambda: poseidon_device_tree(BLS12_381_FR, cfg, leaves, device=dev)
+        tree = poseidon_device_tree(BLS12_381_FR, cfg, leaves, device=dev)
+        idx = torch.arange(0, 1024, 7, device=dev)
+
+        def verify():
+            sib, auth = tree.proof_rows(idx)
+            assert bool(tree.verify_rows_batch(tree.root_row(), tree.leaf_digests[idx], idx, sib, auth).all())
+        return verify
+    return prepare
+
+
+def _pedersen_tree_path(op):
+    def prepare(dev):
+        leaves = torch.randint(0, 256, (32, 8), dtype=torch.uint8, generator=torch.Generator().manual_seed(30))
+        if op == "build":
+            return lambda: _pedersen_tree(leaves.to(dev), dev)
+        tree = _pedersen_tree(leaves.to(dev), dev)[0]
+        idx = torch.arange(32, device=dev)
+
+        def verify():
+            sib, auth = tree.proof_rows(idx)
+            assert bool(tree.verify_rows_batch(tree.root_row(), tree.leaf_digests, idx, sib, auth).all())
+        return verify
+    return prepare
+
+
+def _sha256_path(dev):
+    msgs = torch.randint(0, 256, (1024, 55), dtype=torch.uint8, generator=torch.Generator().manual_seed(31)).to(dev)
+    return lambda: sha256(msgs, device=dev)
+
+
+def _poseidon_two_to_one_path(dev):
+    from crypto_primitives_tpu_torch.models.crh import PoseidonTwoToOneCRH
+
+    cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+    left, right = _fr_rows((256,), 32).to(dev), _fr_rows((256,), 33).to(dev)
+    return lambda: PoseidonTwoToOneCRH(BLS12_381_FR).evaluate_batch(cfg, left, right, device=dev)
+
+
+def _pedersen_path(curve_name, op):
+    def prepare(dev):
+        import random
+
+        from crypto_primitives_tpu_torch.models.commitment import PedersenCommitment, PedersenCommitmentCompressor
+        from crypto_primitives_tpu_torch.models.crh import PedersenCRH, Window
+        from crypto_primitives_tpu_torch.models.crh.bowe_hopwood import BoweHopwoodCRH
+        from crypto_primitives_tpu_torch.models.crh.injective_map import PedersenCRHCompressor
+        from crypto_primitives_tpu_torch.ops import curves_known
+
+        curve = getattr(curves_known, curve_name)
+        rng = random.Random(34)
+        inputs = torch.randint(0, 256, (64, 30), dtype=torch.uint8,
+                               generator=torch.Generator().manual_seed(34)).to(dev)
+        if op in ("crh", "crh_compressor", "bowe_hopwood"):
+            crh = {"crh": PedersenCRH, "crh_compressor": PedersenCRHCompressor,
+                   "bowe_hopwood": BoweHopwoodCRH}[op](curve, Window(6, 40))
+            params = crh.setup(rng)
+            return lambda: crh.evaluate_batch(params, inputs, device=dev)
+        com = (PedersenCommitment if op == "commitment" else PedersenCommitmentCompressor)(curve, Window(6, 40))
+        params = com.setup(rng)
+        inner = com if op == "commitment" else com.inner
+        bits = torch.from_numpy(inner.randomness_to_bits([com.rand_randomness(rng) for _ in range(64)])).to(dev)
+        return lambda: com.commit_batch(params, inputs, bits, device=dev)
+    return prepare
+
+
+def _schnorr_path(curve_name, op):
+    def prepare(dev):
+        import random
+
+        from crypto_primitives_tpu_torch.models.signature import Schnorr
+        from crypto_primitives_tpu_torch.ops import curves_known
+
+        scheme = Schnorr(getattr(curves_known, curve_name))
+        rng = random.Random(35)
+        params = scheme.setup(rng)
+        if op == "keygen":
+            return lambda: scheme.keygen_batch(params, rng, 40, device=dev)
+        keys = scheme.keygen_batch(params, rng, 40, device=dev)
+        msgs = [bytes([i]) * 5 for i in range(40)]
+        if op == "sign":
+            return lambda: scheme.sign_batch(params, [sk for _, sk in keys], msgs, rng, device=dev)
+        sigs = scheme.sign_batch(params, [sk for _, sk in keys], msgs, rng, device=dev)
+        return lambda: scheme.verify_batch(params, [pk for pk, _ in keys], msgs, sigs, device=dev)
+    return prepare
+
+
+def _elgamal_path(curve_name, op):
+    def prepare(dev):
+        import random
+
+        from crypto_primitives_tpu_torch.models.encryption import ElGamal
+        from crypto_primitives_tpu_torch.ops import curves_known
+
+        curve = getattr(curves_known, curve_name)
+        scheme = ElGamal(curve)
+        rng = random.Random(36)
+        params = scheme.setup(rng)
+        pk, sk = scheme.keygen(params, rng)
+        # 40 messages take r pk's fixed-base route, 5 (below 32) the windowed one
+        n = 5 if op == "encrypt_windowed" else 40
+        msgs = [curve.rand_point(rng) for _ in range(n)]
+        rs = [scheme.rand_randomness(rng) for _ in range(n)]
+        if op != "decrypt":
+            return lambda: scheme.encrypt_batch(params, pk, msgs, rs, device=dev)
+        cts = scheme.encrypt_batch(params, pk, msgs, rs, device=dev)
+        return lambda: scheme.decrypt_batch(params, sk, cts, device=dev)
+    return prepare
+
+
+def _protocol_path(op):
+    def prepare(dev):
+        import random
+
+        from crypto_primitives_tpu_torch.models.protocols.ipa_fold import ipa_fold_prove
+        from crypto_primitives_tpu_torch.models.protocols.sumcheck import sumcheck_prove
+        from crypto_primitives_tpu_torch.models.sponge.fiat_shamir import fold_argument
+        from crypto_primitives_tpu_torch.ops.curves_known import JUBJUB
+
+        cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+        rng = random.Random(37)
+        if op == "fold_argument":
+            coms = [[rng.randrange(BLS12_381_FR.p) for _ in range(5)] for _ in range(100)]
+            return lambda: fold_argument(cfg, coms, device=dev)
+        if op == "sumcheck":
+            table = _fr_rows((64, 32), 37).to(dev)
+            return lambda: sumcheck_prove(cfg, table, device=dev)
+        gens = [JUBJUB.rand_point(rng) for _ in range(4)]
+        scalars = [[rng.randrange(JUBJUB.scalar.p) for _ in range(4)] for _ in range(6)]
+        return lambda: ipa_fold_prove(JUBJUB, cfg, gens, scalars, device=dev)
+    return prepare
+
+
+def _blake2s_prf_path(dev):
+    from crypto_primitives_tpu_torch.models.prf import Blake2sPRF
+
+    g = torch.Generator().manual_seed(38)
+    seeds, inputs = (torch.randint(0, 256, (256, 32), dtype=torch.uint8, generator=g).to(dev) for _ in range(2))
+    return lambda: Blake2sPRF.evaluate_batch(seeds, inputs, device=dev)
+
+
+# (name, tag, its MSM wrapper) of the two curves the curve paths run on
+_CURVES = (("ED_ON_BLS12_377", "ed377", "msm_kernel"), ("BLS12_381_G1", "g1", "msm_sw_kernel"))
+
+_PATHS = {
+    "sha256_tree.build": _sha256_tree_path("build"),
+    "sha256_tree.verify": _sha256_tree_path("verify"),
+    "poseidon_tree.build": _poseidon_tree_path("build"),
+    "poseidon_tree.verify": _poseidon_tree_path("verify"),
+    "pedersen_tree.build": _pedersen_tree_path("build"),
+    "pedersen_tree.verify": _pedersen_tree_path("verify"),
+    "ops.sha256": _sha256_path,
+    "PoseidonTwoToOneCRH.evaluate_batch": _poseidon_two_to_one_path,
+    "fold_argument": _protocol_path("fold_argument"),
+    "sumcheck_prove": _protocol_path("sumcheck"),
+    "ipa_fold_prove": _protocol_path("ipa"),
+    "Blake2sPRF.evaluate_batch": _blake2s_prf_path,
+    **{f"pedersen.{op}.ed377": _pedersen_path("ED_ON_BLS12_377", op)
+       for op in ("crh_compressor", "commitment_compressor", "bowe_hopwood")},
+    **{f"pedersen.{op}.{tag}": _pedersen_path(curve, op) for curve, tag, _ in _CURVES for op in ("crh", "commitment")},
+    **{f"schnorr.{op}.{tag}": _schnorr_path(curve, op) for curve, tag, _ in _CURVES
+       for op in ("keygen", "sign", "verify")},
+    **{f"elgamal.{op}.{tag}": _elgamal_path(curve, op) for curve, tag, _ in _CURVES
+       for op in ("encrypt", "encrypt_windowed", "decrypt")},
+}
+
+# (path, {wrapper module: launches}): an exact count where the path's shape
+# fixes it (0: none), None for at least one; an empty dict for a path that
+# launches no kernel at all.  1024 leaves: the leaf hash and 10 levels.
+_PATH_LAUNCHES = [
+    ("sha256_tree.build", {"sha256_kernel": 11}),
+    ("sha256_tree.verify", {"sha256_kernel": None}),
+    ("poseidon_tree.build", {"poseidon_kernel": 11}),
+    ("poseidon_tree.verify", {"poseidon_kernel": None}),
+    ("pedersen_tree.build", {"msm_kernel": None, "affine_kernel": None}),
+    ("pedersen_tree.verify", {"msm_kernel": None}),
+    ("ops.sha256", {"sha256_kernel": 1}),
+    ("PoseidonTwoToOneCRH.evaluate_batch", {"poseidon_kernel": 1}),
+    ("pedersen.crh_compressor.ed377", {"msm_kernel": 1}),
+    ("pedersen.commitment_compressor.ed377", {"msm_kernel": 2}),
+    ("pedersen.bowe_hopwood.ed377", {"msm_kernel": 1}),
+    ("fold_argument", {"poseidon_kernel": None}),
+    ("sumcheck_prove", {"poseidon_kernel": None}),
+    ("ipa_fold_prove", {"poseidon_kernel": None}),
+    ("Blake2sPRF.evaluate_batch", {}),
+]
+for _, _tag, _msm in _CURVES:
+    _PATH_LAUNCHES += [
+        (f"pedersen.crh.{_tag}", {_msm: 1, "affine_kernel": 1}),
+        (f"pedersen.commitment.{_tag}", {_msm: 2, "affine_kernel": 1}),
+        *((f"schnorr.{op}.{_tag}", {_msm: None}) for op in ("keygen", "sign", "verify")),
+        *((f"elgamal.{op}.{_tag}", {_msm: None}) for op in ("encrypt", "encrypt_windowed")),
+        (f"elgamal.decrypt.{_tag}", {_msm: 0, "affine_kernel": None}),
+    ]
+
+
+@pytest.mark.parametrize("path,needs", _PATH_LAUNCHES, ids=[p for p, _ in _PATH_LAUNCHES])
+def test_path_launches_its_kernels(cuda, path, needs):
+    """Each public path run on the card launches the kernels it must, read
+    from the wrappers' ``launches`` counters around the call.  decrypt_batch
+    (windowed products, as in the JAX package) launches no MSM kernel, only
+    the affine step; Blake2s launches no kernel at all."""
+    from crypto_primitives_tpu_torch.ops import affine_kernel, msm_kernel, msm_sw_kernel
+
+    wrappers = {"poseidon_kernel": poseidon_kernel, "sha256_kernel": sha256_kernel, "msm_kernel": msm_kernel,
+                "msm_sw_kernel": msm_sw_kernel, "affine_kernel": affine_kernel}
+    run = _PATHS[path](cuda)
+    before = {name: mod.launches for name, mod in wrappers.items()}
+    run()
+    torch.cuda.synchronize()
+    launched = {name: mod.launches - before[name] for name, mod in wrappers.items()}
+    for name, count in needs.items():
+        assert launched[name] > 0 if count is None else launched[name] == count, launched
+    if not needs:
+        assert not any(launched.values()), launched

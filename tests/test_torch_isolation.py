@@ -24,7 +24,6 @@ import crypto_primitives_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke
 from crypto_primitives_tpu_torch.native import build
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "crypto_primitives_tpu"
@@ -43,8 +42,7 @@ def test_port_imports_without_jax_or_build():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-                         + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py"))
-                         + ["chip_smoke.py"])
+                         + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py")))
 def test_sources_import_nothing_of_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
