@@ -122,19 +122,23 @@ class ByteDigestConverter:
     arkworks serializes a ``Vec<u8>`` digest as an 8-byte LE length prefix
     followed by the bytes, so a 32-byte SHA-256 digest becomes a 40-byte
     inner-hash input (what the reference's SHA-256 bench tree hashes,
-    benches/merkle_tree.rs:24-33).
+    benches/merkle_tree.rs:24-33).  The prefix is copied to a device once and
+    kept there, so a batch conversion touches no host memory (a CUDA graph
+    can capture it).
     """
 
     def __init__(self, width: int):
         self.width = width
-        self._prefix = torch.tensor(list(int(width).to_bytes(8, "little")), dtype=torch.uint8)
+        self._prefixes = {"cpu": torch.tensor(list(int(width).to_bytes(8, "little")), dtype=torch.uint8)}
 
     def convert(self, host_digest: bytes) -> bytes:
         return len(host_digest).to_bytes(8, "little") + bytes(host_digest)
 
     def convert_batch(self, arr: torch.Tensor) -> torch.Tensor:
-        prefix = self._prefix.to(arr.device).expand(arr.shape[:-1] + (8,))
-        return torch.cat([prefix, arr], dim=-1)
+        key = str(arr.device)
+        if key not in self._prefixes:
+            self._prefixes[key] = self._prefixes["cpu"].to(arr.device)
+        return torch.cat([self._prefixes[key].expand(arr.shape[:-1] + (8,)), arr], dim=-1)
 
 
 class PointToBytesDigestConverter:

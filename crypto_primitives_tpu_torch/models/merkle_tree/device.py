@@ -21,11 +21,16 @@ Three instantiations:
     (Pedersen leaf and two-to-one hashes over a TE curve); digest rows are
     the x || y uncompressed bytes of the affine Pedersen outputs, and a whole
     level is one grouped MSM launch plus the affine step.
+
+On a CUDA tree, ``proof_rows`` and ``verify_rows_batch`` become one CUDA
+graph replay each from the second call at a key (the batch, the inputs'
+shapes and dtypes, the device): :class:`GraphCache` and :class:`_Graph`.
 """
 
 from __future__ import annotations
 
 import functools
+from collections import OrderedDict
 from typing import Callable, List, Sequence
 
 import numpy as np
@@ -35,6 +40,7 @@ from crypto_primitives_tpu_torch.device import resolve_device
 from crypto_primitives_tpu_torch.models.crh.pedersen import PedersenCRH, PedersenParameters, Window
 from crypto_primitives_tpu_torch.models.merkle_tree import ByteDigestConverter, Path, tree_height
 from crypto_primitives_tpu_torch.models.sponge.poseidon import PoseidonConfig, permute
+from crypto_primitives_tpu_torch.ops import affine_kernel, msm_kernel, msm_sw_kernel, poseidon_kernel, sha256_kernel
 from crypto_primitives_tpu_torch.ops.curve import affine_to_uncompressed_bytes
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 from crypto_primitives_tpu_torch.ops.sha256 import sha256
@@ -76,10 +82,86 @@ def _multipath_schedule(idx: tuple, n_levels: int) -> tuple:
     return tuple(schedule)
 
 
+# CUDA graphs a tree keeps (and keys it remembers as seen once), least
+# recently used first out
+GRAPH_KEYS = 4
+
+# The kernel wrappers' launch counters.  A replay launches the captured kernels
+# without passing through the wrappers, so it raises each counter by what the
+# capture added to it.
+_COUNTERS = ((sha256_kernel, "launches"), (poseidon_kernel, "launches"), (poseidon_kernel, "group_launches"),
+             (msm_kernel, "launches"), (msm_sw_kernel, "launches"), (affine_kernel, "launches"))
+
+
+class GraphCache:
+    """Which calls replay a CUDA graph, by key.  :meth:`get` returns None for
+    a key seen for the first time (the caller runs eagerly, which also makes
+    every first-use upload), ``capture()`` for a key seen again, kept as the
+    key's entry, and that entry from then on.  It keeps at most ``size``
+    entries and ``size`` keys seen once, least recently used first out, so a
+    one-off shape never pays for a capture and varying shapes cannot grow
+    memory without limit."""
+
+    def __init__(self, size: int = GRAPH_KEYS):
+        self.size = size
+        self.seen: OrderedDict = OrderedDict()
+        self.entries: OrderedDict = OrderedDict()
+
+    @staticmethod
+    def _put(store: OrderedDict, key, value, size: int) -> None:
+        store[key] = value
+        if len(store) > size:
+            store.popitem(last=False)
+
+    def get(self, key, capture):
+        if key in self.entries:
+            self.entries.move_to_end(key)
+            return self.entries[key]
+        if key not in self.seen:
+            self._put(self.seen, key, None, self.size)
+            return None
+        del self.seen[key]
+        entry = capture()
+        self._put(self.entries, key, entry, self.size)
+        return entry
+
+
+class _Graph:
+    """``fn(*inputs)`` captured as one CUDA graph on copies of ``inputs``.  The
+    call before at the same key ran ``fn`` eagerly, so the capture reads
+    nothing from the host.  A call copies its inputs in, replays (span
+    ``kernel.graph``, ``rows``: the kernel rows the graph runs), raises the
+    launch counters by the captured launches, and hands out copies of the
+    outputs: a later replay overwrites them.  Nothing catches a failed
+    capture."""
+
+    def __init__(self, fn, inputs, rows: int):
+        self.inputs = [x.clone() for x in inputs]
+        self.rows = rows
+        before = [getattr(mod, name) for mod, name in _COUNTERS]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outputs = fn(*self.inputs)
+        self.launched = []
+        for (mod, name), count in zip(_COUNTERS, before):
+            self.launched.append(getattr(mod, name) - count)
+            setattr(mod, name, count)  # the capture ran nothing; the replays count
+
+    def __call__(self, inputs):
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
+        with profiling.annotate("kernel.graph", self.rows):
+            self.graph.replay()
+        for (mod, name), count in zip(_COUNTERS, self.launched):
+            setattr(mod, name, getattr(mod, name) + count)
+        return tuple(out.clone() for out in self.outputs)
+
+
 class DeviceMerkleTree:
     """``inner_levels[0]`` is the root level (1 row); ``inner_levels[-1]`` is
     the bottom inner level (n/2 rows); ``leaf_digests`` is ``(n, ...)``.
-    All tensors live on one device."""
+    All tensors live on one device, and are updated in place only (the
+    graphs read them through the addresses they captured)."""
 
     def __init__(
         self,
@@ -97,6 +179,7 @@ class DeviceMerkleTree:
         # digests before the bottom inner hash only
         self.leaf_convert = leaf_convert
         self.height = tree_height(int(leaf_digests.shape[0]))
+        self.graphs = GraphCache()
 
     @property
     def device(self) -> torch.device:
@@ -162,25 +245,41 @@ class DeviceMerkleTree:
         (B, height-2, D) root first), the array twin of Path.auth_path
         (reference mod.rs:547-569), one gather per level.
 
-        Spans: ``tree.gather_paths``, and inside it one ``tree.gather_level``
-        a level and ``tree.stack_paths``."""
+        Spans: ``tree.gather_paths``, and inside it either one
+        ``tree.gather_level`` a level and ``tree.stack_paths`` (eager), or
+        ``kernel.graph`` with ``rows`` 0 (a replay, :meth:`_replayed`)."""
         idx = torch.as_tensor(indexes, dtype=torch.int64, device=self.device)
         with profiling.annotate("tree.gather_paths"):
+            return self._replayed("proof_rows", self._gather, (idx,), 0)
+
+    def _gather(self, idx):
+        """The eager body of :meth:`proof_rows`."""
+        with profiling.annotate("tree.gather_level"):
+            leaf_sib = self.leaf_digests.index_select(0, idx ^ 1)
+        auth = []
+        node = idx >> 1  # index in the bottom inner level
+        for level in self.inner_levels[:0:-1]:  # bottom ... level 1; the root is not in a path
             with profiling.annotate("tree.gather_level"):
-                leaf_sib = self.leaf_digests.index_select(0, idx ^ 1)
-            auth = []
-            node = idx >> 1  # index in the bottom inner level
-            for level in self.inner_levels[:0:-1]:  # bottom ... level 1; the root is not in a path
-                with profiling.annotate("tree.gather_level"):
-                    auth.append(level.index_select(0, node ^ 1))
-                    node = node >> 1
-            auth.reverse()  # root first
-            if not auth:  # 2-leaf tree: the path is just the leaf sibling
-                return leaf_sib, self.leaf_digests.new_zeros(
-                    (idx.shape[0], 0) + tuple(self.leaf_digests.shape[1:])
-                )
-            with profiling.annotate("tree.stack_paths"):
-                return leaf_sib, torch.stack(auth, dim=1)
+                auth.append(level.index_select(0, node ^ 1))
+                node = node >> 1
+        auth.reverse()  # root first
+        if not auth:  # 2-leaf tree: the path is just the leaf sibling
+            return leaf_sib, self.leaf_digests.new_zeros(
+                (idx.shape[0], 0) + tuple(self.leaf_digests.shape[1:])
+            )
+        with profiling.annotate("tree.stack_paths"):
+            return leaf_sib, torch.stack(auth, dim=1)
+
+    def _replayed(self, name: str, fn, inputs: tuple, rows: int):
+        """``fn(*inputs)``: eager on a CPU tree and at a key's first call; on a
+        CUDA tree from the second call at (``name``, the inputs' shapes and
+        dtypes, the device) a replay of the graph captured then
+        (:class:`GraphCache`)."""
+        if self.device.type != "cuda":
+            return fn(*inputs)
+        key = (name, *((tuple(x.shape), x.dtype) for x in inputs), str(self.device))
+        graph = self.graphs.get(key, lambda: _Graph(fn, inputs, rows))
+        return fn(*inputs) if graph is None else graph(inputs)
 
     def generate_proof(self, index: int) -> Path:
         """Host Path (interoperates with Path.verify)."""
@@ -201,9 +300,11 @@ class DeviceMerkleTree:
         canonicalizes the recomputed root, and here every row is canonical
         already, so both settings compare the same rows.
 
-        Spans: ``tree.verify_paths``, and inside it ``tree.convert_leaves``,
-        then a level's sides picked (``tree.select_level``) and hashed
-        (``tree.hash_level``)."""
+        Spans: ``tree.verify_paths``, and inside it either
+        ``tree.convert_leaves``, then a level's sides picked
+        (``tree.select_level``) and hashed (``tree.hash_level``) (eager), or
+        ``kernel.graph`` with ``rows`` B x (height - 1), the rows the levels
+        hash (a replay, :meth:`_replayed`)."""
         dev = self.device
         idx = torch.as_tensor(indexes, dtype=torch.int64, device=dev)
         B = idx.shape[0]
@@ -220,29 +321,36 @@ class DeviceMerkleTree:
                 )
             if auth.dim() != 2 + len(d) or auth.shape[0] != B:
                 raise ValueError(f"auth must be (B, height-2, D) as proof_rows returns (got {tuple(auth.shape)})")
-
-            def pick(cond, a, b):
-                return torch.where(cond.unsqueeze(-1), a, b)
-
-            with profiling.annotate("tree.convert_leaves"):
-                curr = self.leaf_convert(leaf_digests)
-                sibs = [self.leaf_convert(leaf_sib)]
-            sibs += auth.unbind(1)[::-1]  # bottom up: auth is stored root first
-            node = idx
-            for sib in sibs:
-                with profiling.annotate("tree.select_level"):
-                    is_left = (node & 1) == 0
-                    left, right = pick(is_left, curr, sib), pick(is_left, sib, curr)
-                    node = node >> 1
-                with profiling.annotate("tree.hash_level"):
-                    curr = self.compress_batch(left, right)
-            if tuple(root_row.shape) != tuple(curr.shape[1:]):
+            node_row = tuple(self.inner_levels[0].shape[1:])  # what the compress returns
+            if tuple(root_row.shape) != node_row:
                 raise ValueError(
-                    f"root_row must be one digest row of shape {tuple(curr.shape[1:])} (got "
+                    f"root_row must be one digest row of shape {node_row} (got "
                     f"{tuple(root_row.shape)}); use canonical_root_row()/root_canonical=True for "
                     "roots from another process"
                 )
-            return (curr == root_row).all(dim=-1)
+            inputs = (root_row, leaf_digests, idx, leaf_sib, auth)
+            return self._replayed("verify_rows_batch", self._verify, inputs, B * (auth.shape[1] + 1))[0]
+
+    def _verify(self, root_row, leaf_digests, idx, leaf_sib, auth) -> tuple:
+        """The eager body of :meth:`verify_rows_batch`: its verdicts, as a
+        one-tuple like every body a graph captures."""
+
+        def pick(cond, a, b):
+            return torch.where(cond.unsqueeze(-1), a, b)
+
+        with profiling.annotate("tree.convert_leaves"):
+            curr = self.leaf_convert(leaf_digests)
+            sibs = [self.leaf_convert(leaf_sib)]
+        sibs += auth.unbind(1)[::-1]  # bottom up: auth is stored root first
+        node = idx
+        for sib in sibs:
+            with profiling.annotate("tree.select_level"):
+                is_left = (node & 1) == 0
+                left, right = pick(is_left, curr, sib), pick(is_left, sib, curr)
+                node = node >> 1
+            with profiling.annotate("tree.hash_level"):
+                curr = self.compress_batch(left, right)
+        return ((curr == root_row).all(dim=-1),)
 
     def multipath_verify_rows(self, root_row, leaf_digests, indexes: Sequence[int], leaf_sib, auth) -> torch.Tensor:
         """Deduplicated batch verification, the twin of MultiPath's memoized

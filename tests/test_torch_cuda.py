@@ -13,8 +13,9 @@ the batched small-domain and Montgomery checks, ``which_unsatisfied``) on
 the card against the CPU, tampered and not; the Merkle path circuits and
 ``parallel/`` over NCCL at world size 1; the pinned Poseidon sponge vector,
 the Pedersen commitment, a Pedersen tree and an ElGamal circuit over
-BLS12-377 Fr on the card; and, for each public path, the kernels it launches
-there (``test_path_launches_its_kernels``).
+BLS12-377 Fr on the card; for each public path, the kernels it launches
+there (``test_path_launches_its_kernels``); and the device trees' proof and
+verify calls replayed from CUDA graphs against their eager path.
 
 Every test here needs a CUDA device and skips without one.  On a machine with
 a card (and without JAX, which tests/conftest.py imports):
@@ -1162,3 +1163,155 @@ def test_path_launches_its_kernels(cuda, path, needs):
         assert launched[name] > 0 if count is None else launched[name] == count, launched
     if not needs:
         assert not any(launched.values()), launched
+
+
+# The device trees' paths as CUDA graph replays (models/merkle_tree/device.py:
+# GraphCache, _Graph): 1024-leaf SHA-256 and Poseidon trees, the 32-leaf
+# Pedersen tree, each with its batch.
+_GRAPH_TREES = ("sha256", "poseidon", "pedersen")
+
+
+def _graph_tree(kind, dev):
+    from crypto_primitives_tpu_torch.models.merkle_tree.device import poseidon_device_tree, sha256_device_tree
+
+    if kind == "sha256":
+        g = torch.Generator(device=dev).manual_seed(40)
+        leaves = torch.randint(0, 256, (1024, 32), dtype=torch.uint8, device=dev, generator=g)
+        return sha256_device_tree(leaves, device=dev), 256
+    if kind == "poseidon":
+        cfg = get_default_poseidon_parameters(BLS12_381_FR, 2)
+        return poseidon_device_tree(BLS12_381_FR, cfg, _fr_rows((1024,), 41).to(dev), device=dev), 256
+    leaves = torch.randint(0, 256, (32, 8), dtype=torch.uint8, generator=torch.Generator().manual_seed(42))
+    return _pedersen_tree(leaves.to(dev), dev)[0], 16
+
+
+def _graph_job(tree, batch, seed):
+    """(idx, leaf digests) of one job: ``batch`` indexes drawn with
+    replacement, every 16th leaf swapped for the leaf half the tree away."""
+    n = tree.leaf_digests.shape[0]
+    g = torch.Generator(device=tree.device).manual_seed(seed)
+    idx = torch.randint(0, n, (batch,), device=tree.device, generator=g)
+    src = idx.clone()
+    src[::16] = (idx[::16] + n // 2) % n
+    return idx, tree.leaf_digests.index_select(0, src)
+
+
+def _paths(tree, idx, digests):
+    sib, auth = tree.proof_rows(idx)
+    return sib, auth, tree.verify_rows_batch(tree.root_row(), digests, idx, sib, auth)
+
+
+def _eager_paths(tree, idx, digests):
+    sib, auth = tree._gather(idx)
+    return sib, auth, tree._verify(tree.root_row(), digests, idx, sib, auth)[0]
+
+
+@pytest.mark.parametrize("kind", _GRAPH_TREES)
+def test_tree_paths_replays_equal_the_eager_path(cuda, kind):
+    """Four calls at one key, with other indexes each time: the first runs
+    eagerly, the second captures, all equal the eager path bit for bit, the
+    tampered proofs alone fail, and what a call handed out stays as it was
+    after the later calls."""
+    tree, batch = _graph_tree(kind, cuda)
+    handed, copies = [], []
+    for call in range(4):
+        idx, digests = _graph_job(tree, batch, 50 + call)
+        got = _paths(tree, idx, digests)
+        assert len(tree.graphs.entries) == (0 if call == 0 else 2)
+        want = _eager_paths(tree, idx, digests)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert got[2].tolist() == [i % 16 != 0 for i in range(batch)]
+        handed.append(got)
+        copies.append([x.clone() for x in got])
+    for got, copy in zip(handed, copies):
+        assert all(torch.equal(a, b) for a, b in zip(got, copy))
+
+
+@pytest.mark.parametrize("kind", _GRAPH_TREES)
+def test_a_replay_after_update_batch_reads_the_new_digests(cuda, kind):
+    """update_batch writes the levels in place, so the graphs captured before
+    it gather the new siblings and verify against the new root."""
+    tree, batch = _graph_tree(kind, cuda)
+    n = tree.leaf_digests.shape[0]
+    idx, digests = _graph_job(tree, batch, 60)
+    for _ in range(2):
+        _paths(tree, idx, digests)
+    graphs = dict(tree.graphs.entries)
+    assert len(graphs) == 2
+    old_root = tree.root_row().clone()
+    moved = [3, n // 2 + 1, n - 2]
+    tree.update_batch(moved, tree.leaf_digests[[(i + 5) % n for i in moved]].clone())
+    assert not torch.equal(tree.root_row(), old_root)
+    idx2 = idx.clone()
+    idx2[1:4] = torch.tensor(moved, device=cuda)
+    digests2 = tree.leaf_digests.index_select(0, idx2)
+    got = _paths(tree, idx2, digests2)
+    assert dict(tree.graphs.entries) == graphs  # replayed, not captured again
+    assert all(torch.equal(a, b) for a, b in zip(got, _eager_paths(tree, idx2, digests2)))
+    assert bool(got[2].all())
+
+
+def test_a_new_batch_captures_a_new_graph_within_the_bound(cuda):
+    """Each batch seen twice takes a graph of its own; the tree keeps
+    GRAPH_KEYS of them, the least recently used going first; a batch seen
+    once takes none."""
+    from crypto_primitives_tpu_torch.models.merkle_tree.device import GRAPH_KEYS
+
+    tree, _ = _graph_tree("sha256", cuda)
+    sizes = [8 * (k + 1) for k in range(GRAPH_KEYS + 2)]
+    for k, batch in enumerate(sizes):
+        idx = torch.arange(batch, device=cuda) * 3
+        want = tree._gather(idx)
+        for _ in range(2):
+            assert all(torch.equal(a, b) for a, b in zip(tree.proof_rows(idx), want))
+        keys = [key[1][0][0] for key in tree.graphs.entries]
+        assert keys == sizes[max(0, k + 1 - GRAPH_KEYS): k + 1]
+    tree.proof_rows(torch.arange(5, device=cuda))
+    assert len(tree.graphs.entries) == GRAPH_KEYS and 5 not in [key[1][0][0] for key in tree.graphs.entries]
+
+
+@pytest.mark.parametrize("kind", _GRAPH_TREES)
+def test_replays_raise_the_launch_counters_by_the_captured_launches(cuda, kind):
+    """Every verify call, eager, capturing or replayed, raises the kernel
+    wrappers' counters by the launches of one level loop: one a level (K4 and
+    the affine step a level on the Pedersen tree); a gather raises none."""
+    from crypto_primitives_tpu_torch.ops import affine_kernel, msm_kernel
+
+    tree, batch = _graph_tree(kind, cuda)
+    levels = tree.height - 1
+    want = {"sha256": {sha256_kernel: levels}, "poseidon": {poseidon_kernel: levels},
+            "pedersen": {msm_kernel: levels, affine_kernel: levels}}[kind]
+    idx, digests = _graph_job(tree, batch, 70)
+    for call in range(4):
+        before = {mod: mod.launches for mod in want}
+        sib, auth = tree.proof_rows(idx)
+        assert {mod: mod.launches - before[mod] for mod in want} == {mod: 0 for mod in want}
+        tree.verify_rows_batch(tree.root_row(), digests, idx, sib, auth)
+        assert {mod: mod.launches - before[mod] for mod in want} == want, call
+    verify = [g for key, g in tree.graphs.entries.items() if key[0] == "verify_rows_batch"]
+    assert sum(verify[0].launched) == sum(want.values()) + (levels if kind == "poseidon" else 0)  # K1 in groups
+
+
+def test_a_replay_is_one_kernel_graph_span_whose_kernels_the_profiler_sees(cuda):
+    """Under torch.profiler a replayed verify is the root ``tree.verify_paths``
+    holding one ``kernel.graph`` span of B x (height - 1) rows and none of
+    the eager loop's spans, and the profiler's trace holds the K3 launches
+    the graph runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crypto_primitives_tpu_torch.utils import profiling
+
+    tree, batch = _graph_tree("sha256", cuda)
+    idx, digests = _graph_job(tree, batch, 80)
+    for _ in range(2):
+        sib, auth = tree.proof_rows(idx)
+        tree.verify_rows_batch(tree.root_row(), digests, idx, sib, auth)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tree.verify_rows_batch(tree.root_row(), digests, idx, sib, auth)
+        torch.cuda.synchronize()
+    spans = profiling.spans()
+    assert [(s.name, s.rows) for s in spans] == [("tree.verify_paths", None), ("kernel.graph", batch * 10)]
+    assert spans[1].parent == spans[0].id
+    events = prof.profiler.kineto_results.events()
+    k3 = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA and "digest_kernel" in e.name()]
+    assert len(k3) == tree.height - 1, sorted({e.name() for e in events})
