@@ -8,6 +8,13 @@ samples MODULUS_BIT_SIZE powers of h, then the window generators
 blinding term over the randomness bits, little-endian (mod.rs:62-105).  Both
 curve models work.  ``commit_batch`` runs two grouped MSMs (message and
 blinding) and one complete addition, then the affine step.
+
+``commit_batch`` opens span ``comm.pedersen``, with the CRH's ``crh.bits``
+and ``crh.msm`` (``PedersenCRH.evaluate_batch_projective``), ``comm.blind``
+(the opening's bits, their window indices and the blinding table's grouped
+MSM, K4's ``kernel.k4`` on a TE curve), ``comm.add`` (the complete addition
+of the two sums, ``ops.curve.te_add`` in plain torch) and ``comm.affine``
+(the affine kernel's ``kernel.affine``) inside it.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from crypto_primitives_tpu_torch.device import resolve_device
 from crypto_primitives_tpu_torch.models.commitment import CommitmentScheme
 from crypto_primitives_tpu_torch.models.crh.pedersen import GROUP_W, PedersenCRH, PedersenParameters, Window
 from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+from crypto_primitives_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(eq=False)
@@ -79,10 +87,15 @@ class PedersenCommitment(CommitmentScheme):
         (..., 2, W) Montgomery words."""
         dev = resolve_device(device)
         mod = fast_mod(self.curve)
-        msg = self.crh.evaluate_batch_projective(params.crh_params(), inputs, device=dev)
-        bits = torch.as_tensor(randomness, dtype=torch.uint8, device=dev)
-        blind = mod.conditional_sum_grouped_auto(self.curve, params, bits, GROUP_W)
-        return mod.to_affine(self.curve, mod.add(self.curve, msg, blind))
+        with profiling.annotate("comm.pedersen"):
+            msg = self.crh.evaluate_batch_projective(params.crh_params(), inputs, device=dev)
+            with profiling.annotate("comm.blind"):
+                bits = torch.as_tensor(randomness, dtype=torch.uint8, device=dev)
+                blind = mod.conditional_sum_grouped_auto(self.curve, params, bits, GROUP_W)
+            with profiling.annotate("comm.add"):
+                acc = mod.add(self.curve, msg, blind)
+            with profiling.annotate("comm.affine"):
+                return mod.to_affine(self.curve, acc)
 
     def randomness_to_bits(self, randomness) -> np.ndarray:
         """Host scalars -> (..., nbits) little-endian uint8 bits."""
