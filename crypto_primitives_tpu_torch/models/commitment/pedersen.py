@@ -13,8 +13,9 @@ blinding) and one complete addition, then the affine step.
 and ``crh.msm`` (``PedersenCRH.evaluate_batch_projective``), ``comm.blind``
 (the opening's bits, their window indices and the blinding table's grouped
 MSM, K4's ``kernel.k4`` on a TE curve), ``comm.add`` (the complete addition
-of the two sums, ``ops.curve.te_add`` in plain torch) and ``comm.affine``
-(the affine kernel's ``kernel.affine``) inside it.
+of the two sums, ``ops.curve.te_add``: on a TE curve one launch of the
+addition kernel, ``kernel.add``) and ``comm.affine`` (the affine kernel's
+``kernel.affine``) inside it.
 """
 
 from __future__ import annotations

@@ -64,6 +64,10 @@ SIGNATURES = {
         # in, out, host_consts, n0, ebits, batch, coords, nwords, device, stream
         "curve_affine": [_P, _P, _P, _U, _I, _LL, _I, _I, _I, _P],
     },
+    "curve_add": {
+        # in1, in2, out, host_consts, n0, batch, nwords, device, stream
+        "curve_add": [_P, _P, _P, _P, _U, _LL, _I, _I, _P],
+    },
     "field_probe": {
         # op, a, b, out, host_p, n0, count, iters, nwords, device, stream
         "field_ops": [_I, _P, _P, _P, _P, _U, _LL, _I, _I, _I, _P],

@@ -27,6 +27,10 @@ in one call: A, B, B, A.  Inputs are made on the card from a fixed seed:
                     step on 2^16 random projective points, ed-on-bls12-377
                     (extended, W = 8) and BLS12-381 G1 (projective, W = 12),
                     and its plain version on the card (curve_affine_plain_*)
+  curve_add_w8      where the root has ops/add_kernel.py: the complete
+                    addition of 2^16 pairs of random extended points,
+                    ed-on-bls12-377 (W = 8), and its plain version on the
+                    card (curve_add_plain_w8)
   msm_sw_<curve>_k<k>  where the root's msm_sw_kernel has a SPLIT table: the
                     same shape for every build (BLS12-381 G1, Pallas, a W = 8
                     curve with a != 0, P-256) with each row split over
@@ -301,6 +305,15 @@ def main() -> int:
                 raise SystemExit(f"curve_affine on {curve.name} differs from its plain version")
             times[f"curve_affine_w{W}"] = median_ms(lambda: affine_kernel.to_affine(curve, pts), 10)
             times[f"curve_affine_plain_w{W}"] = median_ms(lambda: affine_kernel.to_affine_plain(curve, pts), 3)
+    if importlib.util.find_spec("crypto_primitives_tpu_torch.ops.add_kernel") is not None:
+        from crypto_primitives_tpu_torch.ops import add_kernel
+
+        curve = ED_ON_BLS12_377
+        p1, p2 = (words(curve.base, (1 << 16, 4)) for _ in range(2))
+        if not torch.equal(add_kernel.te_add(curve, p1, p2), add_kernel.te_add_plain(curve, p1, p2)):
+            raise SystemExit(f"curve_add on {curve.name} differs from its plain version")
+        times["curve_add_w8"] = median_ms(lambda: add_kernel.te_add(curve, p1, p2), 10)
+        times["curve_add_plain_w8"] = median_ms(lambda: add_kernel.te_add_plain(curve, p1, p2), 3)
     if hasattr(msm_sw_kernel, "SPLIT"):
         from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
         from crypto_primitives_tpu_torch.ops.curves_known import PALLAS, SECP256R1

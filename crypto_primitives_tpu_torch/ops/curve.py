@@ -12,12 +12,13 @@ from ``ark-ec`` for twisted-Edwards groups).
     unified add-2008-hwcd law is used for every addition, doubling and the
     identity included: it is complete for a = -1 (a square) and d a
     non-square, so there are no branches.  The 11 products of one addition
-    run as 3 stacked Montgomery products, as in the JAX package.  Every
-    coordinate is fully reduced, so results agree word for word with any
-    other computation that takes the same steps.  Doubling, double-and-add
-    scalar multiplication, conditional sums and projective equality are
-    built on that one law; the ``dev_*`` methods give the curve models one
-    surface.
+    run as 3 stacked Montgomery products, as in the JAX package
+    (``te_add_digits``); ``te_add`` on CUDA tensors is one kernel launch
+    (``ops.add_kernel``).  Every coordinate is fully reduced, so results
+    agree word for word with any other computation that takes the same
+    steps.  Doubling, double-and-add scalar multiplication, conditional
+    sums and projective equality are built on that one law; the ``dev_*``
+    methods give the curve models one surface.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
-from crypto_primitives_tpu_torch.ops import affine_kernel
+from crypto_primitives_tpu_torch.ops import add_kernel, affine_kernel
 from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops.field import FieldSpec
 
@@ -266,8 +267,9 @@ def identity(curve: TECurveSpec, shape, device) -> torch.Tensor:
 
 
 def te_add(curve: TECurveSpec, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
-    """Complete extended-coordinate addition of (..., 4, W) points."""
-    return ff.from_digits(te_add_digits(curve, ff.to_digits(p1), ff.to_digits(p2)))
+    """Complete extended-coordinate addition of (..., 4, W) points
+    (:func:`add_kernel.te_add`)."""
+    return add_kernel.te_add(curve, p1, p2)
 
 
 def te_neg(curve: TECurveSpec, p1: torch.Tensor) -> torch.Tensor:

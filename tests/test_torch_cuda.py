@@ -1127,20 +1127,22 @@ _PATH_LAUNCHES = [
     ("ops.sha256", {"sha256_kernel": 1}),
     ("PoseidonTwoToOneCRH.evaluate_batch", {"poseidon_kernel": 1}),
     ("pedersen.crh_compressor.ed377", {"msm_kernel": 1}),
-    ("pedersen.commitment_compressor.ed377", {"msm_kernel": 2}),
+    ("pedersen.commitment_compressor.ed377", {"msm_kernel": 2, "add_kernel": 1}),
     ("pedersen.bowe_hopwood.ed377", {"msm_kernel": 1}),
     ("fold_argument", {"poseidon_kernel": None}),
     ("sumcheck_prove", {"poseidon_kernel": None}),
-    ("ipa_fold_prove", {"poseidon_kernel": None}),
+    ("ipa_fold_prove", {"poseidon_kernel": None, "add_kernel": None}),
     ("Blake2sPRF.evaluate_batch", {}),
 ]
 for _, _tag, _msm in _CURVES:
+    _add = int(_msm == "msm_kernel")  # the complete-addition kernel adds on the TE curve; G1 adds in plain torch
     _PATH_LAUNCHES += [
-        (f"pedersen.crh.{_tag}", {_msm: 1, "affine_kernel": 1}),
-        (f"pedersen.commitment.{_tag}", {_msm: 2, "affine_kernel": 1}),
-        *((f"schnorr.{op}.{_tag}", {_msm: None}) for op in ("keygen", "sign", "verify")),
-        *((f"elgamal.{op}.{_tag}", {_msm: None}) for op in ("encrypt", "encrypt_windowed")),
-        (f"elgamal.decrypt.{_tag}", {_msm: 0, "affine_kernel": None}),
+        (f"pedersen.crh.{_tag}", {_msm: 1, "affine_kernel": 1, "add_kernel": 0}),
+        (f"pedersen.commitment.{_tag}", {_msm: 2, "affine_kernel": 1, "add_kernel": _add}),
+        *((f"schnorr.{op}.{_tag}", {_msm: None, "add_kernel": 0}) for op in ("keygen", "sign")),
+        (f"schnorr.verify.{_tag}", {_msm: None, "add_kernel": _add}),
+        *((f"elgamal.{op}.{_tag}", {_msm: None, "add_kernel": _add}) for op in ("encrypt", "encrypt_windowed")),
+        (f"elgamal.decrypt.{_tag}", {_msm: 0, "affine_kernel": None, "add_kernel": _add}),
     ]
 
 
@@ -1150,10 +1152,10 @@ def test_path_launches_its_kernels(cuda, path, needs):
     from the wrappers' ``launches`` counters around the call.  decrypt_batch
     (windowed products, as in the JAX package) launches no MSM kernel, only
     the affine step; Blake2s launches no kernel at all."""
-    from crypto_primitives_tpu_torch.ops import affine_kernel, msm_kernel, msm_sw_kernel
+    from crypto_primitives_tpu_torch.ops import add_kernel, affine_kernel, msm_kernel, msm_sw_kernel
 
     wrappers = {"poseidon_kernel": poseidon_kernel, "sha256_kernel": sha256_kernel, "msm_kernel": msm_kernel,
-                "msm_sw_kernel": msm_sw_kernel, "affine_kernel": affine_kernel}
+                "msm_sw_kernel": msm_sw_kernel, "affine_kernel": affine_kernel, "add_kernel": add_kernel}
     run = _PATHS[path](cuda)
     before = {name: mod.launches for name, mod in wrappers.items()}
     run()

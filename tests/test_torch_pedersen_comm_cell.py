@@ -132,7 +132,8 @@ def test_spans_of_a_commitment(cell):
     assert [c.name for c in children] == ["crh.bits", "crh.msm", "comm.blind", "comm.add", "comm.affine"]
     kernels = [(s.name, s.parent, s.rows) for s in spans if s.name.startswith("kernel.")]
     assert kernels == [("kernel.k4", children[1].id, 4), ("kernel.k4", children[2].id, 4),
-                       ("kernel.affine", children[4].id, None)]  # the plain affine step gives no rows
+                       ("kernel.add", children[3].id, None),  # the plain addition and affine step give no rows
+                       ("kernel.affine", children[4].id, None)]
     assert "crh.pedersen" not in {s.name for s in spans}
     assert torch.equal(comm.commit_batch(params, x, bits, device="cpu"), out)
 
