@@ -21,9 +21,19 @@ Two tiers:
     (``None`` means CUDA).  sk G, k G and s G are fixed-base products, one
     grouped MSM over the generator's doubling-power table each (kernel
     ``msm_te`` or ``msm_sw`` on the card); e pk is the windowed
-    variable-base product in plain PyTorch; points are made affine on the
-    device and hashed on the host.  Drawing from ``rng`` in the JAX
-    package's order, they return what its batch tier returns.
+    variable-base product in plain PyTorch; s G + e pk is one complete
+    addition (on a TE curve one launch of the addition kernel A2,
+    ``ops.add_kernel``); points are made affine on the device (the affine
+    kernel A1, ``ops.affine_kernel``) and hashed on the host.  Drawing from
+    ``rng`` in the JAX package's order, they return what its batch tier
+    returns.
+
+``verify_batch`` opens span ``sig.verify``, with ``sig.bits`` (s's and e's
+bits and their upload), ``sig.pack`` (the keys' words and their upload),
+``sig.fixed`` (s G, K4's ``kernel.k4`` on a TE curve), ``sig.windowed`` (e pk,
+``curve.windowed``), ``sig.add`` (``kernel.add``), ``sig.affine`` (the
+affine step's ``kernel.affine`` and the host ints) and ``sig.challenge`` (the
+hash a row on the host and the comparison) inside it, in that order.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 
 from crypto_primitives_tpu_torch.device import resolve_device
 from crypto_primitives_tpu_torch.ops.curve_fast_any import fast_mod
+from crypto_primitives_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -188,21 +199,33 @@ class Schnorr:
     def verify_batch(self, params: SchnorrParameters, pks, messages: List[bytes],
                      sigs: List[SchnorrSignature], device=None) -> List[bool]:
         """``verify`` for every row: s G as a fixed-base product, e pk as the
-        windowed variable-base one, their sum made affine on the device, the
-        challenge hashed on the host."""
+        windowed variable-base one, their sum (one A2 launch on a TE curve)
+        made affine on the device (one A1 launch), the challenge hashed on
+        the host.  Spans: ``sig.verify`` over ``sig.bits``, ``sig.pack``,
+        ``sig.fixed``, ``sig.windowed``, ``sig.add``, ``sig.affine`` and
+        ``sig.challenge``, one a stage."""
         dev = resolve_device(device)
         mod = fast_mod(self.curve)
         B = len(sigs)
         if len(pks) != B or len(messages) != B:
             raise ValueError(f"{B} signatures but {len(pks)} keys and {len(messages)} messages")
-        s_bits = self._bits([s.prover_response for s in sigs], dev)
-        e_bits = self._bits([s.verifier_challenge for s in sigs], dev)
-        pks_dev = torch.from_numpy(mod.pack_points(self.curve, list(pks))).to(dev)
-        sg = mod.fixed_base_mul(self.curve, params.generator, s_bits)
-        epk = mod.scalar_mul_bits_windowed(self.curve, pks_dev, e_bits)
-        r_primes = mod.unpack_affine(self.curve, mod.add(self.curve, sg, epk))
-        out = []
-        for i in range(B):
-            e = self._challenge(params, r_primes[i], messages[i])
-            out.append(e is not None and e == sigs[i].verifier_challenge)
+        with profiling.annotate("sig.verify"):
+            with profiling.annotate("sig.bits"):
+                s_bits = self._bits([s.prover_response for s in sigs], dev)
+                e_bits = self._bits([s.verifier_challenge for s in sigs], dev)
+            with profiling.annotate("sig.pack"):
+                pks_dev = torch.from_numpy(mod.pack_points(self.curve, list(pks))).to(dev)
+            with profiling.annotate("sig.fixed"):
+                sg = mod.fixed_base_mul(self.curve, params.generator, s_bits)
+            with profiling.annotate("sig.windowed"):
+                epk = mod.scalar_mul_bits_windowed(self.curve, pks_dev, e_bits)
+            with profiling.annotate("sig.add"):
+                r_sum = mod.add(self.curve, sg, epk)
+            with profiling.annotate("sig.affine"):
+                r_primes = mod.unpack_affine(self.curve, r_sum)
+            with profiling.annotate("sig.challenge"):
+                out = []
+                for i in range(B):
+                    e = self._challenge(params, r_primes[i], messages[i])
+                    out.append(e is not None and e == sigs[i].verifier_challenge)
         return out

@@ -39,6 +39,7 @@ from crypto_primitives_tpu_torch.ops import field as ff
 from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel
 from crypto_primitives_tpu_torch.ops.curve import te_add, te_add_digits, te_neg, te_sum, te_to_affine
 from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
+from crypto_primitives_tpu_torch.utils import profiling
 
 __all__ = [
     "add", "affine_host", "combo_width", "conditional_sum_grouped_auto", "device_fixed_base", "device_table",
@@ -46,7 +47,7 @@ __all__ = [
     "grouped_sum", "host_ints", "msm_many", "neg", "pack_combos", "pack_points", "pack_table_grouped",
     "scalar_mul_bits_windowed", "scalars_to_bits", "subset_groups", "sum", "te_conditional_sum_grouped",
     "te_fixed_base_mul", "te_scalar_mul_bits_windowed", "to_affine", "unpack_affine", "window_indices",
-    "windowed_digits",
+    "windowed_digits", "windowed_rows",
 ]
 
 
@@ -254,14 +255,24 @@ def windowed_digits(add_digits, ident: torch.Tensor, base: torch.Tensor, bits: t
     return acc.reshape(batch + coords)
 
 
+def windowed_rows(base: torch.Tensor, bits: torch.Tensor) -> int:
+    """The points a windowed product computes: base (..., C, W) and bits
+    (..., N) broadcast, so one scalar for many points or one point for many
+    scalars counts each product once.  The ``rows`` of span
+    ``curve.windowed``."""
+    return torch.broadcast_shapes(bits.shape[:-1], base.shape[:-2]).numel()
+
+
 def te_scalar_mul_bits_windowed(curve, base: torch.Tensor, bits: torch.Tensor, w: int = 4) -> torch.Tensor:
     """base (..., 4, W) extended points times scalars given as bits
     (..., nbits), least significant first (:func:`windowed_digits`); the
     batch shapes of base and bits broadcast.  Plain PyTorch on any device:
-    the JAX package has no TPU kernel for it."""
+    the JAX package has no TPU kernel for it.  Span ``curve.windowed``
+    (``rows``: the points)."""
     ident = curve._consts(base.device)["identity"]
-    return ff.from_digits(windowed_digits(lambda a, b: te_add_digits(curve, a, b), ident,
-                                          ff.to_digits(base), bits, w))
+    with profiling.annotate("curve.windowed", windowed_rows(base, bits)):
+        return ff.from_digits(windowed_digits(lambda a, b: te_add_digits(curve, a, b), ident,
+                                              ff.to_digits(base), bits, w))
 
 
 # ----------------------------------------------------------------------
