@@ -12,8 +12,10 @@ Two tiers:
     means CUDA), with the JAX package's dispatch: r G is always a fixed-base
     product (kernel ``msm_te`` or ``msm_sw`` on the card); r pk is one too
     from 32 messages up, where the recipient's table pays for its host
-    precomputation, and the windowed variable-base product (plain PyTorch)
-    below; sk c1 is always windowed.  Results are made affine on the device.
+    precomputation, and the windowed variable-base product below (on a TE
+    curve on the card one launch of A3, ``ops.windowed_kernel``; plain
+    PyTorch otherwise); sk c1 is always windowed.  Results are made affine on
+    the device.
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ class ElGamal:
 
     def decrypt_batch(self, params: ElGamalParameters, sk: int, ciphertexts: List, device=None) -> List:
         """``decrypt`` for every ciphertext, as host points; sk c1 is the
-        windowed product, so no kernel runs."""
+        windowed product, so no MSM kernel runs."""
         dev = resolve_device(device)
         mod = fast_mod(self.curve)
         sk_bits = torch.from_numpy(mod.scalars_to_bits(self.curve, [sk] * len(ciphertexts))).to(dev)

@@ -23,8 +23,9 @@ transcript, folds the generators, forms C' = C + sum_j (c_j^2 L_j + c_j^-2
 R_j) and accepts iff C' == a* G*.
 
 B instances run as one batch; the curve work is the windowed variable-base
-product in plain PyTorch and the affine step (kernel ``curve_affine`` on the
-card; the JAX package has no TPU kernel for either), and the transcript's
+product (kernel ``curve_windowed`` on a TE curve on the card, plain PyTorch
+otherwise) and the affine step (kernel ``curve_affine`` on the card; the JAX
+package has no TPU kernel for either), and the transcript's
 permutations run kernel ``poseidon_permute``.  The products of one round that
 do not depend on each other (L with R, and the two halves of G') go through
 one windowed call on the stacked points, which gives the same points as two

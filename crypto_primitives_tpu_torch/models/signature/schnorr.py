@@ -21,8 +21,9 @@ Two tiers:
     (``None`` means CUDA).  sk G, k G and s G are fixed-base products, one
     grouped MSM over the generator's doubling-power table each (kernel
     ``msm_te`` or ``msm_sw`` on the card); e pk is the windowed
-    variable-base product in plain PyTorch; s G + e pk is one complete
-    addition (on a TE curve one launch of the addition kernel A2,
+    variable-base product (on a TE curve one launch of A3,
+    ``ops.windowed_kernel``; plain PyTorch otherwise); s G + e pk is one
+    complete addition (on a TE curve one launch of the addition kernel A2,
     ``ops.add_kernel``); points are made affine on the device (the affine
     kernel A1, ``ops.affine_kernel``) and hashed on the host.  Drawing from
     ``rng`` in the JAX package's order, they return what its batch tier
@@ -31,7 +32,7 @@ Two tiers:
 ``verify_batch`` opens span ``sig.verify``, with ``sig.bits`` (s's and e's
 bits and their upload), ``sig.pack`` (the keys' words and their upload),
 ``sig.fixed`` (s G, K4's ``kernel.k4`` on a TE curve), ``sig.windowed`` (e pk,
-``curve.windowed``), ``sig.add`` (``kernel.add``), ``sig.affine`` (the
+``curve.windowed``, with A3's ``kernel.windowed`` on a TE curve), ``sig.add`` (``kernel.add``), ``sig.affine`` (the
 affine step's ``kernel.affine`` and the host ints) and ``sig.challenge`` (the
 hash a row on the host and the comparison) inside it, in that order.
 """

@@ -68,6 +68,11 @@ SIGNATURES = {
         # in1, in2, out, host_consts, n0, batch, nwords, device, stream
         "curve_add": [_P, _P, _P, _P, _U, _LL, _I, _I, _P],
     },
+    "curve_windowed": {
+        # base, bits, table, out, host_consts, n0, batch, nbits, nwords, w,
+        # device, stream
+        "curve_windowed": [_P, _P, _P, _P, _P, _U, _LL, _I, _I, _I, _I, _P],
+    },
     "field_probe": {
         # op, a, b, out, host_p, n0, count, iters, nwords, device, stream
         "field_ops": [_I, _P, _P, _P, _P, _U, _LL, _I, _I, _I, _P],

@@ -1,4 +1,4 @@
-"""Time the port's four path kernels at the main paths' shapes, for one tree.
+"""Time the port's path kernels at the main paths' shapes, for one tree.
 
 Run from anywhere, on a machine with a CUDA card:
 
@@ -31,6 +31,15 @@ in one call: A, B, B, A.  Inputs are made on the card from a fixed seed:
                     addition of 2^16 pairs of random extended points,
                     ed-on-bls12-377 (W = 8), and its plain version on the
                     card (curve_add_plain_w8)
+  curve_windowed_w8  where the root has ops/windowed_kernel.py: the windowed
+                    product of 2^16 random extended points, ed-on-bls12-377
+                    (W = 8), by random 251-bit scalars at w = 4 (Schnorr's
+                    e pk), and its plain version on the card on the first
+                    4096 rows (curve_windowed_plain_w8); and the kernel built
+                    from a copy of its source at each block size of
+                    WINDOWED_THREADS (``curve_windowed_threads``: the time
+                    and ptxas's registers of each), each output held equal
+                    to the wrapper's
   msm_sw_<curve>_k<k>  where the root's msm_sw_kernel has a SPLIT table: the
                     same shape for every build (BLS12-381 G1, Pallas, a W = 8
                     curve with a != 0, P-256) with each row split over
@@ -85,6 +94,7 @@ import torch
 HERE = Path(__file__).resolve()
 SEED = 20261017
 PLAIN_ROWS = 4096  # rows of each plain version's timing
+WINDOWED_THREADS = (64, 128, 256)  # A3's block sizes tried
 
 # One mont_mul<8> of a field.cuh (``%(header)s``), between the loads of its
 # operands and the store of its result.
@@ -206,6 +216,45 @@ def sha256_sass(build, source: Path):
             for kind, probe in (("message_block", "one_block"), ("padding_block", "one_padding_block"))}
 
 
+def windowed_block_sizes(build, ff, curve, base, bits, want) -> dict:
+    """A3 built from a copy of the root's csrc/curve_windowed.cu at each
+    block size of WINDOWED_THREADS and launched through its C entry point
+    on ``base`` and ``bits``: {threads: {"ms": median, "ptxas": registers
+    and spills}}, each output held equal to ``want``."""
+    csrc = Path(build.CSRC)
+    source = (csrc / "curve_windowed.cu").read_text()
+    line = re.search(r"constexpr int kThreads = \d+;", source).group(0)
+    q = curve.base
+    W = q.num_words
+    B, nbits = bits.shape
+    consts = ff.host_words(q, [q.p, q.to_mont(curve.d), q.to_mont(curve.a), q.to_mont(1)])
+    table = torch.empty(((1 << 4) * 4 * W * B,), dtype=torch.int32, device=base.device)
+    out = {}
+    for threads in WINDOWED_THREADS:
+        src = Path(build.BUILD_DIR) / f"curve_windowed_t{threads}.cu"
+        src.write_text(source.replace(line, f"constexpr int kThreads = {threads};"))
+        lib_path = src.with_suffix(".so")
+        proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib_path), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=True)
+        lib = ctypes.CDLL(str(lib_path))
+        lib.curve_windowed.argtypes = build.SIGNATURES["curve_windowed"]["curve_windowed"]
+        lib.curve_windowed.restype = ctypes.c_int
+        res = torch.empty_like(want)
+
+        def fn():
+            err = lib.curve_windowed(base.data_ptr(), bits.data_ptr(), table.data_ptr(), res.data_ptr(),
+                                     consts.ctypes.data, q.n0_word, B, nbits, W, 4, 0,
+                                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise SystemExit(f"curve_windowed at {threads} threads a block: CUDA error {err}")
+
+        fn()
+        if not torch.equal(res, want):
+            raise SystemExit(f"curve_windowed at {threads} threads a block differs from the wrapper's")
+        out[threads] = {"ms": median_ms(fn, 10), "ptxas": parse_ptxas(proc.stdout)}
+    return out
+
+
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -314,6 +363,22 @@ def main() -> int:
             raise SystemExit(f"curve_add on {curve.name} differs from its plain version")
         times["curve_add_w8"] = median_ms(lambda: add_kernel.te_add(curve, p1, p2), 10)
         times["curve_add_plain_w8"] = median_ms(lambda: add_kernel.te_add_plain(curve, p1, p2), 3)
+    windowed_threads = None
+    if importlib.util.find_spec("crypto_primitives_tpu_torch.ops.windowed_kernel") is not None:
+        from crypto_primitives_tpu_torch.ops import field as ff
+        from crypto_primitives_tpu_torch.ops import windowed_kernel
+
+        curve = ED_ON_BLS12_377
+        base = words(curve.base, (1 << 16, 4))
+        bits = torch.randint(0, 2, (1 << 16, curve.scalar.nbits), dtype=torch.uint8, device="cuda", generator=gen)
+        want = windowed_kernel.te_windowed(curve, base, bits)
+        head = (base[:PLAIN_ROWS], bits[:PLAIN_ROWS])
+        if not torch.equal(want[:PLAIN_ROWS], windowed_kernel.te_windowed_plain(curve, *head, 4)):
+            raise SystemExit(f"curve_windowed on {curve.name} differs from its plain version")
+        times["curve_windowed_w8"] = median_ms(lambda: windowed_kernel.te_windowed(curve, base, bits), 10)
+        times["curve_windowed_plain_w8"] = median_ms(lambda: windowed_kernel.te_windowed_plain(curve, *head, 4), 3,
+                                                     warmup=0)
+        windowed_threads = windowed_block_sizes(build, ff, curve, base, bits, want)
     if hasattr(msm_sw_kernel, "SPLIT"):
         from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
         from crypto_primitives_tpu_torch.ops.curves_known import PALLAS, SECP256R1
@@ -388,7 +453,8 @@ def main() -> int:
     has_block = "compress_block" in (csrc / "sha256_compress.cu").read_text()
     print(json.dumps({
         "root": str(root), "device": torch.cuda.get_device_name(0), "nvidia_smi": smi[0] if smi else None,
-        "ms": times, "k1_card": k1_card, "k1_sizes": k1_sizes, "g_products_per_s": rates,
+        "ms": times, "curve_windowed_threads": windowed_threads, "k1_card": k1_card, "k1_sizes": k1_sizes,
+        "g_products_per_s": rates,
         "ptxas_msm_sw": ptxas_report(build, "msm_sw"),
         "ptxas": {name: ptxas_report(build, name) for name in build.SIGNATURES},
         "sass_mont_mul_8": sass_mix(build, csrc / "field.cuh"),

@@ -21,10 +21,12 @@ A fixed-base product k P runs on the same machinery: the table of P's
 doubling powers 2^j P, grouped, turns k's bits into one grouped MSM of
 ceil(nbits / w) groups (kernel ``msm_te``).  :func:`pack_combos` packs any
 per-group point lists the same way (Bowe-Hopwood's signed-digit tables).  A
-variable-base product runs the windowed double-and-add in plain PyTorch, as
-the JAX package runs it in XLA (it has no TPU kernel).  The names at the end
-of the module (``add``, ``neg``, ``sum``, ``fixed_base_mul``, ...) are shared
-with ``curve_sw_fast``, so the models never branch on the curve model.
+variable-base product runs the windowed double-and-add: one A3 launch
+(``ops/windowed_kernel.py``) on a CUDA tensor, :func:`windowed_digits` in
+plain PyTorch on a CPU one (the JAX package runs it in XLA; it has no TPU
+kernel).  The names at the end of the module (``add``, ``neg``, ``sum``,
+``fixed_base_mul``, ...) are shared with ``curve_sw_fast``, so the models
+never branch on the curve model.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from crypto_primitives_tpu_torch.ops import field as ff
-from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel
-from crypto_primitives_tpu_torch.ops.curve import te_add, te_add_digits, te_neg, te_sum, te_to_affine
+from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel, windowed_kernel
+from crypto_primitives_tpu_torch.ops.curve import te_add, te_neg, te_sum, te_to_affine
 from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
 from crypto_primitives_tpu_torch.utils import profiling
 
@@ -220,7 +222,7 @@ def scalars_to_bits(curve, scalars) -> np.ndarray:
 
 
 # ----------------------------------------------------------------------
-# Windowed variable-base scalar multiplication (plain PyTorch)
+# Windowed variable-base scalar multiplication
 # ----------------------------------------------------------------------
 
 
@@ -265,14 +267,12 @@ def windowed_rows(base: torch.Tensor, bits: torch.Tensor) -> int:
 
 def te_scalar_mul_bits_windowed(curve, base: torch.Tensor, bits: torch.Tensor, w: int = 4) -> torch.Tensor:
     """base (..., 4, W) extended points times scalars given as bits
-    (..., nbits), least significant first (:func:`windowed_digits`); the
-    batch shapes of base and bits broadcast.  Plain PyTorch on any device:
-    the JAX package has no TPU kernel for it.  Span ``curve.windowed``
-    (``rows``: the points)."""
-    ident = curve._consts(base.device)["identity"]
+    (..., nbits) uint8, least significant first; the batch shapes of base
+    and bits broadcast.  One A3 launch (``ops.windowed_kernel.te_windowed``)
+    for CUDA tensors, :func:`windowed_digits` for CPU ones.  Span
+    ``curve.windowed`` (``rows``: the points)."""
     with profiling.annotate("curve.windowed", windowed_rows(base, bits)):
-        return ff.from_digits(windowed_digits(lambda a, b: te_add_digits(curve, a, b), ident,
-                                              ff.to_digits(base), bits, w))
+        return windowed_kernel.te_windowed(curve, base, bits, w)
 
 
 # ----------------------------------------------------------------------

@@ -25,8 +25,9 @@ Span names start with their layer: ``tree.`` in the Merkle tree layer
 (``models/signature/schnorr.py``), ``curve.`` in the curve tier's windowed
 product (``ops/curve_fast.py``, ``ops/curve_sw_fast.py``), ``kernel.`` in
 the kernel wrappers (``ops/poseidon_kernel.py``, ``ops/sha256_kernel.py``,
-``ops/msm_kernel.py``, ``ops/affine_kernel.py``, ``ops/add_kernel.py``).  Records are kept
-for the thread that opens spans; the program opens them from one thread.
+``ops/msm_kernel.py``, ``ops/affine_kernel.py``, ``ops/add_kernel.py``,
+``ops/windowed_kernel.py``).  Records are kept for the thread that opens
+spans; the program opens them from one thread.
 """
 
 from __future__ import annotations

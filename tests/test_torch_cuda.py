@@ -1131,18 +1131,20 @@ _PATH_LAUNCHES = [
     ("pedersen.bowe_hopwood.ed377", {"msm_kernel": 1}),
     ("fold_argument", {"poseidon_kernel": None}),
     ("sumcheck_prove", {"poseidon_kernel": None}),
-    ("ipa_fold_prove", {"poseidon_kernel": None, "add_kernel": None}),
+    ("ipa_fold_prove", {"poseidon_kernel": None, "add_kernel": None, "windowed_kernel": None}),
     ("Blake2sPRF.evaluate_batch", {}),
 ]
 for _, _tag, _msm in _CURVES:
-    _add = int(_msm == "msm_kernel")  # the complete-addition kernel adds on the TE curve; G1 adds in plain torch
+    # the complete-addition and windowed-product kernels run on the TE curve; G1 runs both in plain torch
+    _add = int(_msm == "msm_kernel")
     _PATH_LAUNCHES += [
         (f"pedersen.crh.{_tag}", {_msm: 1, "affine_kernel": 1, "add_kernel": 0}),
         (f"pedersen.commitment.{_tag}", {_msm: 2, "affine_kernel": 1, "add_kernel": _add}),
-        *((f"schnorr.{op}.{_tag}", {_msm: None, "add_kernel": 0}) for op in ("keygen", "sign")),
-        (f"schnorr.verify.{_tag}", {_msm: None, "add_kernel": _add}),
-        *((f"elgamal.{op}.{_tag}", {_msm: None, "add_kernel": _add}) for op in ("encrypt", "encrypt_windowed")),
-        (f"elgamal.decrypt.{_tag}", {_msm: 0, "affine_kernel": None, "add_kernel": _add}),
+        *((f"schnorr.{op}.{_tag}", {_msm: None, "add_kernel": 0, "windowed_kernel": 0}) for op in ("keygen", "sign")),
+        (f"schnorr.verify.{_tag}", {_msm: None, "add_kernel": _add, "windowed_kernel": _add}),
+        (f"elgamal.encrypt.{_tag}", {_msm: None, "add_kernel": _add, "windowed_kernel": 0}),
+        (f"elgamal.encrypt_windowed.{_tag}", {_msm: None, "add_kernel": _add, "windowed_kernel": _add}),
+        (f"elgamal.decrypt.{_tag}", {_msm: 0, "affine_kernel": None, "add_kernel": _add, "windowed_kernel": _add}),
     ]
 
 
@@ -1151,11 +1153,13 @@ def test_path_launches_its_kernels(cuda, path, needs):
     """Each public path run on the card launches the kernels it must, read
     from the wrappers' ``launches`` counters around the call.  decrypt_batch
     (windowed products, as in the JAX package) launches no MSM kernel, only
-    the affine step; Blake2s launches no kernel at all."""
-    from crypto_primitives_tpu_torch.ops import add_kernel, affine_kernel, msm_kernel, msm_sw_kernel
+    the affine step, the addition and, on a TE curve, the windowed product;
+    Blake2s launches no kernel at all."""
+    from crypto_primitives_tpu_torch.ops import add_kernel, affine_kernel, msm_kernel, msm_sw_kernel, windowed_kernel
 
     wrappers = {"poseidon_kernel": poseidon_kernel, "sha256_kernel": sha256_kernel, "msm_kernel": msm_kernel,
-                "msm_sw_kernel": msm_sw_kernel, "affine_kernel": affine_kernel, "add_kernel": add_kernel}
+                "msm_sw_kernel": msm_sw_kernel, "affine_kernel": affine_kernel, "add_kernel": add_kernel,
+                "windowed_kernel": windowed_kernel}
     run = _PATHS[path](cuda)
     before = {name: mod.launches for name, mod in wrappers.items()}
     run()

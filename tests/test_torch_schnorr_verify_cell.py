@@ -156,8 +156,10 @@ def test_spans_of_a_verify(pool):
     assert [c.name for c in children] == ["sig.bits", "sig.pack", "sig.fixed", "sig.windowed", "sig.add",
                                           "sig.affine", "sig.challenge"]
     inner = [(s.name, s.parent, s.rows) for s in spans if s.name.startswith(("kernel.", "curve."))]
+    windowed = next(s for s in spans if s.name == "curve.windowed")
     assert inner == [("kernel.k4", children[2].id, 4), ("curve.windowed", children[3].id, 4),
-                     ("kernel.add", children[4].id, None),  # the plain addition and affine step give no rows
+                     # the plain product, addition and affine step give no rows
+                     ("kernel.windowed", windowed.id, None), ("kernel.add", children[4].id, None),
                      ("kernel.affine", children[5].id, None)]
     assert out == scheme.verify_batch(params, pks[:4], messages[:4], sigs[:4], device="cpu")
 
