@@ -29,12 +29,21 @@ Two tiers:
     ``rng`` in the JAX package's order, they return what its batch tier
     returns.
 
-``verify_batch`` opens span ``sig.verify``, with ``sig.bits`` (s's and e's
-bits and their upload), ``sig.pack`` (the keys' words and their upload),
-``sig.fixed`` (s G, K4's ``kernel.k4`` on a TE curve), ``sig.windowed`` (e pk,
-``curve.windowed``, with A3's ``kernel.windowed`` on a TE curve), ``sig.add`` (``kernel.add``), ``sig.affine`` (the
-affine step's ``kernel.affine`` and the host ints) and ``sig.challenge`` (the
-hash a row on the host and the comparison) inside it, in that order.
+``verify_batch`` opens span ``sig.verify``, with these inside it, in order:
+  * ``sig.bits``: s's and e's bits (two ``curve.bits``) and their upload;
+  * ``sig.pack``: the keys' words (``curve.pack``) and their upload;
+  * ``sig.fixed``: s G, K4's ``kernel.k4`` on a TE curve;
+  * ``sig.windowed``: e pk, A3's ``kernel.windowed`` on a TE curve;
+  * ``sig.add``: s G + e pk, ``kernel.add``;
+  * ``sig.affine``: the affine step's ``kernel.affine``, the read to the host
+    (``curve.to_host``, which waits for every kernel queued before it) and
+    the host ints (``curve.host_ints``);
+  * ``sig.challenge``: the challenge in three passes over the batch,
+    ``sig.serialize`` (the hash input a row), ``sig.digest`` (the digest a
+    row) and ``sig.to_scalar`` (``from_random_bytes`` a row and the
+    comparison with e).
+The ``curve.*`` and ``sig.serialize``/``sig.digest``/``sig.to_scalar``
+spans carry ``rows``: the points, scalars or rows they handle.
 """
 
 from __future__ import annotations
@@ -202,9 +211,11 @@ class Schnorr:
         """``verify`` for every row: s G as a fixed-base product, e pk as the
         windowed variable-base one, their sum (one A2 launch on a TE curve)
         made affine on the device (one A1 launch), the challenge hashed on
-        the host.  Spans: ``sig.verify`` over ``sig.bits``, ``sig.pack``,
-        ``sig.fixed``, ``sig.windowed``, ``sig.add``, ``sig.affine`` and
-        ``sig.challenge``, one a stage."""
+        the host in three passes: every hash input, every digest, then
+        every scalar and verdict.  Spans: ``sig.verify`` over ``sig.bits``,
+        ``sig.pack``, ``sig.fixed``, ``sig.windowed``, ``sig.add``,
+        ``sig.affine`` and ``sig.challenge``, one a stage; the module's
+        docstring lists the spans inside them."""
         dev = resolve_device(device)
         mod = fast_mod(self.curve)
         B = len(sigs)
@@ -225,8 +236,13 @@ class Schnorr:
             with profiling.annotate("sig.affine"):
                 r_primes = mod.unpack_affine(self.curve, r_sum)
             with profiling.annotate("sig.challenge"):
-                out = []
-                for i in range(B):
-                    e = self._challenge(params, r_primes[i], messages[i])
-                    out.append(e is not None and e == sigs[i].verifier_challenge)
+                with profiling.annotate("sig.serialize", B):
+                    inputs = [self._hash_input(params, r, m) for r, m in zip(r_primes, messages)]
+                with profiling.annotate("sig.digest", B):
+                    digests = list(map(self.digest, inputs))
+                with profiling.annotate("sig.to_scalar", B):
+                    out = []
+                    for d, sig in zip(digests, sigs):
+                        e = self._from_random_bytes(d)
+                        out.append(e is not None and e == sig.verifier_challenge)
         return out

@@ -49,7 +49,7 @@ __all__ = [
     "grouped_sum", "host_ints", "msm_many", "neg", "pack_combos", "pack_points", "pack_table_grouped",
     "scalar_mul_bits_windowed", "scalars_to_bits", "subset_groups", "sum", "te_conditional_sum_grouped",
     "te_fixed_base_mul", "te_scalar_mul_bits_windowed", "to_affine", "unpack_affine", "window_indices",
-    "windowed_digits", "windowed_rows",
+    "windowed_digits",
 ]
 
 
@@ -213,12 +213,14 @@ def te_fixed_base_mul(curve, pt, bits: torch.Tensor, w: int = 3) -> torch.Tensor
 
 def scalars_to_bits(curve, scalars) -> np.ndarray:
     """Host scalars -> (n, nbits) uint8 bits of each scalar mod r, least
-    significant first (nbits = the scalar field's bit size)."""
+    significant first (nbits = the scalar field's bit size).  Span
+    ``curve.bits`` (``rows``: the scalars)."""
     r, nbits = curve.scalar.p, curve.scalar.nbits
     nbytes = -(-nbits // 8)
-    buf = b"".join((int(v) % r).to_bytes(nbytes, "little") for v in scalars)
-    by = np.frombuffer(buf, np.uint8).reshape(len(scalars), nbytes)
-    return np.unpackbits(by, axis=1, bitorder="little")[:, :nbits]
+    with profiling.annotate("curve.bits", len(scalars)):
+        buf = b"".join((int(v) % r).to_bytes(nbytes, "little") for v in scalars)
+        by = np.frombuffer(buf, np.uint8).reshape(len(scalars), nbytes)
+        return np.unpackbits(by, axis=1, bitorder="little")[:, :nbits]
 
 
 # ----------------------------------------------------------------------
@@ -257,22 +259,12 @@ def windowed_digits(add_digits, ident: torch.Tensor, base: torch.Tensor, bits: t
     return acc.reshape(batch + coords)
 
 
-def windowed_rows(base: torch.Tensor, bits: torch.Tensor) -> int:
-    """The points a windowed product computes: base (..., C, W) and bits
-    (..., N) broadcast, so one scalar for many points or one point for many
-    scalars counts each product once.  The ``rows`` of span
-    ``curve.windowed``."""
-    return torch.broadcast_shapes(bits.shape[:-1], base.shape[:-2]).numel()
-
-
 def te_scalar_mul_bits_windowed(curve, base: torch.Tensor, bits: torch.Tensor, w: int = 4) -> torch.Tensor:
     """base (..., 4, W) extended points times scalars given as bits
     (..., nbits) uint8, least significant first; the batch shapes of base
     and bits broadcast.  One A3 launch (``ops.windowed_kernel.te_windowed``)
-    for CUDA tensors, :func:`windowed_digits` for CPU ones.  Span
-    ``curve.windowed`` (``rows``: the points)."""
-    with profiling.annotate("curve.windowed", windowed_rows(base, bits)):
-        return windowed_kernel.te_windowed(curve, base, bits, w)
+    for CUDA tensors, :func:`windowed_digits` for CPU ones."""
+    return windowed_kernel.te_windowed(curve, base, bits, w)
 
 
 # ----------------------------------------------------------------------
@@ -282,8 +274,10 @@ def te_scalar_mul_bits_windowed(curve, base: torch.Tensor, bits: torch.Tensor, w
 
 def pack_points(curve, pts) -> np.ndarray:
     """Host affine point(s) -> the curve model's int32 word points: one
-    point gives (C, W), a list (N, C, W)."""
-    return curve.pack_points(pts)
+    point gives (C, W), a list (N, C, W).  Span ``curve.pack`` (``rows``: the
+    points)."""
+    with profiling.annotate("curve.pack", 1 if pts is None or isinstance(pts, tuple) else len(pts)):
+        return curve.pack_points(pts)
 
 
 def host_ints(spec, words: torch.Tensor) -> list:
@@ -298,13 +292,20 @@ def affine_host(curve, aff: torch.Tensor):
     one conversion out of Montgomery form on the device: an object array of
     the batch's shape, or one tuple for a single point.  (0, 0), where the
     affine step puts a short-Weierstrass identity, becomes ``None``; it is on
-    no twisted-Edwards curve."""
-    vals = host_ints(curve.base, ff.from_mont(curve.base, aff))
-    out = np.empty((len(vals) // 2,), dtype=object)
-    for i in range(out.shape[0]):
-        x, y = vals[2 * i], vals[2 * i + 1]
-        out[i] = None if x == 0 and y == 0 else (x, y)
-    return out[0] if aff.dim() == 2 else out.reshape(tuple(aff.shape[:-2]))
+    no twisted-Edwards curve.  Spans ``curve.to_host`` (the read to the host,
+    which waits for all the device work queued before it) and
+    ``curve.host_ints`` (the ints and the tuples), ``rows``: the points."""
+    rows = aff.shape[:-2].numel()
+    words = ff.from_mont(curve.base, aff)
+    with profiling.annotate("curve.to_host", rows):
+        words = words.cpu()
+    with profiling.annotate("curve.host_ints", rows):
+        vals = host_ints(curve.base, words)
+        out = np.empty((len(vals) // 2,), dtype=object)
+        for i in range(out.shape[0]):
+            x, y = vals[2 * i], vals[2 * i + 1]
+            out[i] = None if x == 0 and y == 0 else (x, y)
+        return out[0] if aff.dim() == 2 else out.reshape(tuple(aff.shape[:-2]))
 
 
 def unpack_affine(curve, pts: torch.Tensor):

@@ -36,10 +36,8 @@ from crypto_primitives_tpu_torch.ops.curve_fast import (
     subset_groups,
     window_indices,
     windowed_digits,
-    windowed_rows,
 )
 from crypto_primitives_tpu_torch.ops.curve_sw import sw_add, sw_add_digits, sw_neg, sw_sum, sw_to_affine
-from crypto_primitives_tpu_torch.utils import profiling
 
 __all__ = [
     "add", "conditional_sum_grouped_auto", "device_table", "fixed_base_grouped_table", "fixed_base_mul",
@@ -87,12 +85,10 @@ def sw_fixed_base_mul(curve, pt, bits: torch.Tensor, w: int = 3) -> torch.Tensor
 def sw_scalar_mul_bits_windowed(curve, base: torch.Tensor, bits: torch.Tensor, w: int = 4) -> torch.Tensor:
     """base (..., 3, W) projective points times scalars given as bits
     (..., nbits), least significant first (``curve_fast.windowed_digits``,
-    plain PyTorch on any device).  Span ``curve.windowed`` (``rows``: the
-    points)."""
+    plain PyTorch on any device)."""
     ident = curve._consts(base.device)["identity"]
-    with profiling.annotate("curve.windowed", windowed_rows(base, bits)):
-        return ff.from_digits(windowed_digits(lambda a, b: sw_add_digits(curve, a, b), ident,
-                                              ff.to_digits(base), bits, w))
+    return ff.from_digits(windowed_digits(lambda a, b: sw_add_digits(curve, a, b), ident,
+                                          ff.to_digits(base), bits, w))
 
 
 def unpack_affine(curve, pts: torch.Tensor):

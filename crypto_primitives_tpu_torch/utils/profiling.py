@@ -22,8 +22,10 @@ Span names start with their layer: ``tree.`` in the Merkle tree layer
 (``models/merkle_tree/device.py``), ``crh.`` in the Pedersen CRH
 (``models/crh/pedersen.py``), ``comm.`` in the Pedersen commitment
 (``models/commitment/pedersen.py``), ``sig.`` in Schnorr's batch verify
-(``models/signature/schnorr.py``), ``curve.`` in the curve tier's windowed
-product (``ops/curve_fast.py``, ``ops/curve_sw_fast.py``), ``kernel.`` in
+(``models/signature/schnorr.py``), ``curve.`` in the curve tier's moves
+between host and device (``ops/curve_fast.py``: ``pack_points``,
+``scalars_to_bits``, ``affine_host``, which ``ops/curve_sw_fast.py``
+shares), ``kernel.`` in
 the kernel wrappers (``ops/poseidon_kernel.py``, ``ops/sha256_kernel.py``,
 ``ops/msm_kernel.py``, ``ops/affine_kernel.py``, ``ops/add_kernel.py``,
 ``ops/windowed_kernel.py``).  Records are kept for the thread that opens

@@ -6,9 +6,11 @@ s = r - 1 and with an e of the full 251 bits, and one row of each of the
 traffic's three tamperings; the port's batch verdicts against the
 reference's, the reference's against the intent and against the port's host
 ``verify``; the reference's refusal of a bad key or generator; the
-configuration's pool and job draws from the seed; the ``sig.*`` and
-``curve.windowed`` spans under ``torch.profiler`` and the benchmark's readers
-of them.  On the card (marked ``cuda``, skipped without one): the
+configuration's pool and job draws from the seed; the challenge's three
+passes against the per-row challenge, a digest that maps to no scalar
+included, and the verdicts with spans on and off; the ``sig.*`` and
+``curve.*`` spans under ``torch.profiler`` and the benchmark's readers of
+them.  On the card (marked ``cuda``, skipped without one): the
 configuration's program against the reference, through three launches."""
 
 import dataclasses
@@ -146,8 +148,9 @@ def test_pool_and_job_draws_repeat_from_the_seed():
 
 def test_spans_of_a_verify(pool):
     scheme, params, _, pks, messages, sigs, _ = pool
+    B = 4
     with profile(activities=[ProfilerActivity.CPU]):
-        out = scheme.verify_batch(params, pks[:4], messages[:4], sigs[:4], device="cpu")
+        out = scheme.verify_batch(params, pks[:B], messages[:B], sigs[:B], device="cpu")
     spans = profiling.spans()
     assert all(s.end_ns is not None and s.end_ns >= s.start_ns for s in spans)
     roots = [s for s in spans if s.parent is None]
@@ -155,22 +158,80 @@ def test_spans_of_a_verify(pool):
     children = [s for s in spans if s.parent == roots[0].id]
     assert [c.name for c in children] == ["sig.bits", "sig.pack", "sig.fixed", "sig.windowed", "sig.add",
                                           "sig.affine", "sig.challenge"]
-    inner = [(s.name, s.parent, s.rows) for s in spans if s.name.startswith(("kernel.", "curve."))]
-    windowed = next(s for s in spans if s.name == "curve.windowed")
-    assert inner == [("kernel.k4", children[2].id, 4), ("curve.windowed", children[3].id, 4),
+    assert all(c.rows is None for c in children)
+    inner = {c.name: [(s.name, s.rows) for s in spans if s.parent == c.id] for c in children}
+    assert inner == {"sig.bits": [("curve.bits", B), ("curve.bits", B)], "sig.pack": [("curve.pack", B)],
+                     "sig.fixed": [("kernel.k4", B)],
                      # the plain product, addition and affine step give no rows
-                     ("kernel.windowed", windowed.id, None), ("kernel.add", children[4].id, None),
-                     ("kernel.affine", children[5].id, None)]
-    assert out == scheme.verify_batch(params, pks[:4], messages[:4], sigs[:4], device="cpu")
+                     "sig.windowed": [("kernel.windowed", None)], "sig.add": [("kernel.add", None)],
+                     "sig.affine": [("kernel.affine", None), ("curve.to_host", B), ("curve.host_ints", B)],
+                     "sig.challenge": [("sig.serialize", B), ("sig.digest", B), ("sig.to_scalar", B)]}
+    # nothing below those: the root, its 7 stages and the 12 spans inside them
+    assert len(spans) == 1 + 7 + 12 and "curve.windowed" not in {s.name for s in spans}
+    assert out == scheme.verify_batch(params, pks[:B], messages[:B], sigs[:B], device="cpu")
 
 
-def test_sw_windowed_product_span_counts_broadcast_points():
-    base = torch.from_numpy(curve_sw_fast.pack_points(PALLAS, PALLAS.rand_point(random.Random(3))))
-    bits = torch.from_numpy(curve_sw_fast.scalars_to_bits(PALLAS, [5, 200]))[:, :8]  # two windows
+def test_curve_tier_spans_on_a_sw_curve():
+    """The short-Weierstrass tier shares the TE tier's moves between host and
+    device, and their spans: ``curve.pack`` and ``curve.bits`` with the
+    points and scalars as ``rows`` (one point counts one), ``curve.to_host``
+    and ``curve.host_ints`` with the points read back."""
+    rng = random.Random(3)
+    pts = [PALLAS.rand_point(rng) for _ in range(3)]
     with profile(activities=[ProfilerActivity.CPU]):
-        out = curve_sw_fast.scalar_mul_bits_windowed(PALLAS, base, bits)
-    assert out.shape == (2, 3, PALLAS.base.num_words)
-    assert [(s.name, s.parent, s.rows) for s in profiling.spans()] == [("curve.windowed", None, 2)]
+        one = curve_sw_fast.pack_points(PALLAS, pts[0])
+        words = torch.from_numpy(curve_sw_fast.pack_points(PALLAS, pts))
+        bits = curve_sw_fast.scalars_to_bits(PALLAS, [5, 200])
+        back = curve_sw_fast.unpack_affine(PALLAS, words)
+    assert one.shape == (3, PALLAS.base.num_words) and bits.shape == (2, PALLAS.scalar.nbits)
+    assert list(back) == pts
+    named = [(s.name, s.parent, s.rows) for s in profiling.spans() if s.name.startswith("curve.")]
+    assert named == [("curve.pack", None, 1), ("curve.pack", None, 3), ("curve.bits", None, 2),
+                     ("curve.to_host", None, 3), ("curve.host_ints", None, 3)]
+
+
+def _per_row(scheme, params, pks, messages, sigs):
+    """The verdicts of the per-row loop the three passes replace: ``verify``'s
+    r' on the host, then ``_challenge`` a row and the comparison."""
+    out = []
+    for pk, m, g in zip(pks, messages, sigs):
+        r = scheme.curve.scalar.p
+        r_prime = scheme.curve.add_host(scheme.curve.scalar_mul_host(params.generator, g.prover_response % r),
+                                        scheme.curve.scalar_mul_host(pk, g.verifier_challenge % r))
+        e = scheme._challenge(params, r_prime, m)
+        out.append(e is not None and e == g.verifier_challenge)
+    return out
+
+
+def test_challenge_passes_equal_the_per_row_challenge(pool):
+    """The challenge's three passes give the per-row loop's verdicts, row for
+    row, where a row's digest maps to no scalar: a stand-in digest gives 32
+    bytes 0xFF (2^251 - 1 once masked to r's 251 bits, at least r) on
+    messages whose last byte is odd, and that row reads False."""
+    scheme, params, _, pks, messages, sigs, intent = pool
+
+    def digest(data):
+        return b"\xff" * 32 if data[-1] & 1 else CFGMOD.blake2s_256(data)
+
+    assert scheme._from_random_bytes(b"\xff" * 32) is None
+    stand_in = Schnorr(CURVE, digest=digest)
+    got = stand_in.verify_batch(params, pks, messages, sigs, device="cpu")
+    assert got == _per_row(stand_in, params, pks, messages, sigs)
+    odd = np.array([m[-1] & 1 for m in messages], dtype=bool)
+    assert odd.any() and (intent & ~odd).any()
+    assert not np.array(got)[odd].any()
+    assert np.array_equal(np.array(got)[~odd], intent[~odd])
+
+
+def test_verdicts_equal_with_spans_on_and_off(pool):
+    scheme, params, ref, pks, messages, sigs, intent = pool
+    before = profiling.spans()
+    off = scheme.verify_batch(params, pks, messages, sigs, device="cpu")
+    assert profiling.spans() == before
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = scheme.verify_batch(params, pks, messages, sigs, device="cpu")
+    assert [s.rows for s in profiling.spans() if s.name == "sig.digest"] == [len(sigs)]
+    assert on == off == intent.tolist()
 
 
 def _read(metric, run):
@@ -189,7 +250,7 @@ def test_readers_of_the_verify_spans():
                 for name in ("sig.bits", "sig.pack", "sig.fixed"):
                     with profiling.annotate(name):
                         pass
-                with profiling.annotate("sig.windowed"), profiling.annotate("curve.windowed", 8):
+                with profiling.annotate("sig.windowed"), profiling.annotate("kernel.windowed", 8):
                     sum(range(1000))
                 with profiling.annotate("sig.challenge"):
                     pass
@@ -200,9 +261,58 @@ def test_readers_of_the_verify_spans():
     assert _read("sig_host_ms", traced) == pytest.approx(ms["sig.bits"] + ms["sig.pack"] + ms["sig.challenge"])
     assert _read("sig_windowed_ms", SimpleNamespace(trace=None)) is None
     with profile(activities=[ProfilerActivity.CPU]):
-        with profiling.annotate("curve.windowed", 8):
+        with profiling.annotate("kernel.windowed", 8):
             pass
     assert _read("sig_windowed_ms", traced) is None and _read("sig_host_ms", traced) is None
+
+
+# each reader of a verify's host stages and the spans it sums
+STAGES = {"sig_pack_ms": ("curve.pack",), "sig_bits_ms": ("curve.bits",), "sig_unpack_ms": ("curve.host_ints",),
+          "sig_wait_ms": ("curve.to_host",), "sig_digest_ms": ("sig.digest",),
+          "sig_encode_ms": ("sig.serialize", "sig.to_scalar")}
+# a verify job's span tree, as ``verify_batch`` opens it: (stage, the spans inside it)
+JOB = [("sig.bits", ("curve.bits", "curve.bits")), ("sig.pack", ("curve.pack",)), ("sig.fixed", ("kernel.k4",)),
+       ("sig.windowed", ("kernel.windowed",)), ("sig.add", ("kernel.add",)),
+       ("sig.affine", ("kernel.affine", "curve.to_host", "curve.host_ints")),
+       ("sig.challenge", ("sig.serialize", "sig.digest", "sig.to_scalar"))]
+
+
+@pytest.mark.parametrize("metric", sorted(STAGES))
+def test_readers_of_the_host_stages(metric):
+    """Each reads its spans inside the ``sig.verify`` roots, ms a job, and not
+    a span of its name outside them (set-up's keys); None without a trace,
+    where no root is ``sig.verify``, or where the verify keeps no such span,
+    as on a program whose stages have no spans inside them."""
+    traced = SimpleNamespace(trace=object())
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.annotate("curve.pack", 16), profiling.annotate("curve.bits", 16):
+            sum(range(1000))
+        for _ in range(2):
+            with profiling.annotate("sig.verify"):
+                for stage, names in JOB:
+                    with profiling.annotate(stage):
+                        for name in names:
+                            with profiling.annotate(name, 8):
+                                sum(range(1000))
+    spans = profiling.spans()
+    roots = {s.id for s in spans if s.name == "sig.verify"}
+    by_id = {s.id: s for s in spans}
+    want = sum(s.end_ns - s.start_ns for s in spans
+               if s.name in STAGES[metric] and s.parent is not None and by_id[s.parent].parent in roots)
+    assert want > 0
+    assert _read(metric, traced) == pytest.approx(want * 1e-6 / 2)
+    assert _read(metric, SimpleNamespace(trace=None)) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        for name in STAGES[metric]:
+            with profiling.annotate(name, 8):
+                pass
+    assert _read(metric, traced) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.annotate("sig.verify"):
+            for stage, _ in JOB:
+                with profiling.annotate(stage):
+                    pass
+    assert _read(metric, traced) is None
 
 
 @pytest.fixture

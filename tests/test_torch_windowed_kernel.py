@@ -136,10 +136,9 @@ def test_product_routes_through_the_wrapper_and_its_spans():
     with profile(activities=[ProfilerActivity.CPU]):
         got = curve_fast.scalar_mul_bits_windowed(curve, base[0], bits)
     assert torch.equal(got, digit_schedule(curve, base[0], bits))
-    spans = profiling.spans()
-    # the plain branch: a span with no rows, which only a kernel launch carries
-    assert [(s.name, s.rows) for s in spans] == [("curve.windowed", 8), ("kernel.windowed", None)]
-    assert spans[1].parent == spans[0].id
+    # the product's one span is the wrapper's (a verify holds it in ``sig.windowed``); on the
+    # plain branch it has no rows, which only a kernel launch carries
+    assert [(s.name, s.parent, s.rows) for s in profiling.spans()] == [("kernel.windowed", None, None)]
 
 
 # ---------------------------------------------------------------- on the card
