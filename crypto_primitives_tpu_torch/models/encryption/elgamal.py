@@ -14,8 +14,10 @@ Two tiers:
     from 32 messages up, where the recipient's table pays for its host
     precomputation, and the windowed variable-base product below (on a TE
     curve on the card one launch of A3, ``ops.windowed_kernel``; plain
-    PyTorch otherwise); sk c1 is always windowed.  Results are made affine on
-    the device.
+    PyTorch otherwise); sk c1 is always windowed.  Each call takes its host
+    points to the device in one pack (``pack_points_device``: on a TE curve
+    on the card one launch of A4, ``ops.pack_kernel``).  Results are made
+    affine on the device.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ class ElGamal:
     # -- batched tier --
 
     def _points(self, pts, device: torch.device) -> torch.Tensor:
-        return torch.from_numpy(fast_mod(self.curve).pack_points(self.curve, pts)).to(device)
+        return fast_mod(self.curve).pack_points_device(self.curve, pts, device)
 
     def encrypt_batch(self, params: ElGamalParameters, pk, messages: List, randomness: List[int],
                       device=None) -> List[Tuple]:
@@ -76,9 +78,13 @@ class ElGamal:
         c1 = mod.fixed_base_mul(self.curve, params.generator, rbits)
         if B >= FIXED_BASE_PK_ROWS:
             s = mod.fixed_base_mul(self.curve, pk, rbits)
+            msgs = self._points(list(messages), dev)
         else:
-            s = mod.scalar_mul_bits_windowed(self.curve, self._points(tuple(pk), dev), rbits)
-        c2 = mod.add(self.curve, self._points(list(messages), dev), s)
+            # pk and the messages in one pack
+            pts = self._points([tuple(pk)] + list(messages), dev)
+            s = mod.scalar_mul_bits_windowed(self.curve, pts[0], rbits)
+            msgs = pts[1:]
+        c2 = mod.add(self.curve, msgs, s)
         both = mod.unpack_affine(self.curve, torch.stack([c1, c2], dim=1))
         return [(both[i, 0], both[i, 1]) for i in range(B)]
 
@@ -88,7 +94,7 @@ class ElGamal:
         dev = resolve_device(device)
         mod = fast_mod(self.curve)
         sk_bits = torch.from_numpy(mod.scalars_to_bits(self.curve, [sk] * len(ciphertexts))).to(dev)
-        c1 = self._points([c[0] for c in ciphertexts], dev)
-        c2 = self._points([c[1] for c in ciphertexts], dev)
-        s = mod.scalar_mul_bits_windowed(self.curve, c1, sk_bits)
-        return list(mod.unpack_affine(self.curve, mod.add(self.curve, c2, mod.neg(self.curve, s))))
+        n = len(ciphertexts)
+        pts = self._points([c[0] for c in ciphertexts] + [c[1] for c in ciphertexts], dev)  # c1s, then c2s
+        s = mod.scalar_mul_bits_windowed(self.curve, pts[:n], sk_bits)
+        return list(mod.unpack_affine(self.curve, mod.add(self.curve, pts[n:], mod.neg(self.curve, s))))

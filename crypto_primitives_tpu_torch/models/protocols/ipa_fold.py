@@ -22,11 +22,13 @@ prover reveals the folded scalar a*; the host verifier replays the
 transcript, folds the generators, forms C' = C + sum_j (c_j^2 L_j + c_j^-2
 R_j) and accepts iff C' == a* G*.
 
-B instances run as one batch; the curve work is the windowed variable-base
-product (kernel ``curve_windowed`` on a TE curve on the card, plain PyTorch
-otherwise) and the affine step (kernel ``curve_affine`` on the card; the JAX
-package has no TPU kernel for either), and the transcript's
-permutations run kernel ``poseidon_permute``.  The products of one round that
+B instances run as one batch; the curve work is the generators' pack
+(kernel ``curve_pack`` on a TE curve on the card, the host pack otherwise),
+the windowed variable-base product (kernel ``curve_windowed`` on a TE curve
+on the card, plain PyTorch otherwise) and the affine step (kernel
+``curve_affine`` on the card; the JAX package has no TPU kernel for any of
+the three), and the transcript's permutations run kernel
+``poseidon_permute``.  The products of one round that
 do not depend on each other (L with R, and the two halves of G') go through
 one windowed call on the stacked points, which gives the same points as two
 calls.
@@ -97,7 +99,7 @@ def ipa_fold_prove(curve, config: PoseidonConfig, gens, scalars_host, device=Non
         raise ValueError(f"the generators must number 2^m >= 2, got {n}")
 
     a_rows = torch.from_numpy(fs.pack(np.asarray(scalars_host, dtype=object))).to(dev)  # (B, n, W_s)
-    packed_g = torch.from_numpy(mod.pack_points(curve, list(gens))).to(dev)
+    packed_g = mod.pack_points_device(curve, list(gens), dev)
     G_pts = packed_g.expand((B,) + tuple(packed_g.shape))  # (B, n, C, W)
     t = FiatShamir(config, batch_shape=(B,), device=dev)
 

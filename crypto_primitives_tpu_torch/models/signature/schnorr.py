@@ -31,7 +31,8 @@ Two tiers:
 
 ``verify_batch`` opens span ``sig.verify``, with these inside it, in order:
   * ``sig.bits``: s's and e's bits (two ``curve.bits``) and their upload;
-  * ``sig.pack``: the keys' words (``curve.pack``) and their upload;
+  * ``sig.pack``: the keys' canonical words (``curve.pack``), their upload
+    and, on a TE curve, their extended Montgomery form (``kernel.pack``);
   * ``sig.fixed``: s G, K4's ``kernel.k4`` on a TE curve;
   * ``sig.windowed``: e pk, A3's ``kernel.windowed`` on a TE curve;
   * ``sig.add``: s G + e pk, ``kernel.add``;
@@ -226,7 +227,7 @@ class Schnorr:
                 s_bits = self._bits([s.prover_response for s in sigs], dev)
                 e_bits = self._bits([s.verifier_challenge for s in sigs], dev)
             with profiling.annotate("sig.pack"):
-                pks_dev = torch.from_numpy(mod.pack_points(self.curve, list(pks))).to(dev)
+                pks_dev = mod.pack_points_device(self.curve, list(pks), dev)
             with profiling.annotate("sig.fixed"):
                 sg = mod.fixed_base_mul(self.curve, params.generator, s_bits)
             with profiling.annotate("sig.windowed"):

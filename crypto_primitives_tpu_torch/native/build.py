@@ -73,6 +73,10 @@ SIGNATURES = {
         # device, stream
         "curve_windowed": [_P, _P, _P, _P, _P, _U, _LL, _I, _I, _I, _I, _P],
     },
+    "curve_pack": {
+        # in, out, host_consts, n0, batch, nwords, device, stream
+        "curve_pack": [_P, _P, _P, _U, _LL, _I, _I, _P],
+    },
     "field_probe": {
         # op, a, b, out, host_p, n0, count, iters, nwords, device, stream
         "field_ops": [_I, _P, _P, _P, _P, _U, _LL, _I, _I, _I, _P],

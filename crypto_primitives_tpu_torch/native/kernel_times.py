@@ -40,6 +40,13 @@ in one call: A, B, B, A.  Inputs are made on the card from a fixed seed:
                     WINDOWED_THREADS (``curve_windowed_threads``: the time
                     and ptxas's registers of each), each output held equal
                     to the wrapper's
+  curve_pack_w8     where the root has ops/pack_kernel.py: the extended
+                    Montgomery words of 2^16 random canonical (x, y) pairs,
+                    ed-on-bls12-377 (W = 8; Schnorr's keys), by the wrapper,
+                    and through the C entry point in runs of 100 launches
+                    (curve_pack_c_w8: the time a launch), each output held
+                    equal to the plain version's on the first 4096 rows,
+                    and that plain version on the card (curve_pack_plain_w8)
   msm_sw_<curve>_k<k>  where the root's msm_sw_kernel has a SPLIT table: the
                     same shape for every build (BLS12-381 G1, Pallas, a W = 8
                     curve with a != 0, P-256) with each row split over
@@ -379,6 +386,32 @@ def main() -> int:
         times["curve_windowed_plain_w8"] = median_ms(lambda: windowed_kernel.te_windowed_plain(curve, *head, 4), 3,
                                                      warmup=0)
         windowed_threads = windowed_block_sizes(build, ff, curve, base, bits, want)
+    if importlib.util.find_spec("crypto_primitives_tpu_torch.ops.pack_kernel") is not None:
+        from crypto_primitives_tpu_torch.ops import field as ff
+        from crypto_primitives_tpu_torch.ops import pack_kernel
+
+        curve = ED_ON_BLS12_377
+        q = curve.base
+        xy = words(q, (1 << 16, 2))
+        want = pack_kernel.te_pack(curve, xy)
+        head = xy[:PLAIN_ROWS]
+        if not torch.equal(want[:PLAIN_ROWS], pack_kernel.te_pack_plain(curve, head)):
+            raise SystemExit(f"curve_pack on {curve.name} differs from its plain version")
+        times["curve_pack_w8"] = median_ms(lambda: pack_kernel.te_pack(curve, xy), 10)
+        lib = build.load("curve_pack")
+        out = torch.empty_like(want)
+        consts = ff.host_words(q, [q.p, q.R2_mod_p, q.R_mod_p])
+
+        def pack_c():
+            err = lib.curve_pack(xy.data_ptr(), out.data_ptr(), consts.ctypes.data, q.n0_word, xy.shape[0],
+                                 q.num_words, 0, torch.cuda.current_stream().cuda_stream)
+            build.check(lib, err, "curve_pack")
+
+        pack_c()
+        if not torch.equal(out, want):
+            raise SystemExit("curve_pack through its C entry differs from the wrapper's")
+        times["curve_pack_c_w8"] = median_ms(lambda: [pack_c() for _ in range(100)], 10) / 100
+        times["curve_pack_plain_w8"] = median_ms(lambda: pack_kernel.te_pack_plain(curve, head), 3)
     if hasattr(msm_sw_kernel, "SPLIT"):
         from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
         from crypto_primitives_tpu_torch.ops.curves_known import PALLAS, SECP256R1

@@ -24,9 +24,11 @@ per-group point lists the same way (Bowe-Hopwood's signed-digit tables).  A
 variable-base product runs the windowed double-and-add: one A3 launch
 (``ops/windowed_kernel.py``) on a CUDA tensor, :func:`windowed_digits` in
 plain PyTorch on a CPU one (the JAX package runs it in XLA; it has no TPU
-kernel).  The names at the end of the module (``add``, ``neg``, ``sum``,
-``fixed_base_mul``, ...) are shared with ``curve_sw_fast``, so the models
-never branch on the curve model.
+kernel).  :func:`pack_points_device` takes host points to the device as
+canonical words and leaves their Montgomery form to one A4 launch
+(``ops/pack_kernel.py``).  The names at the end of the module (``add``,
+``neg``, ``sum``, ``fixed_base_mul``, ...) are shared with
+``curve_sw_fast``, so the models never branch on the curve model.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from crypto_primitives_tpu_torch.ops import field as ff
-from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel, windowed_kernel
+from crypto_primitives_tpu_torch.ops import msm_kernel, msm_sw_kernel, pack_kernel, windowed_kernel
 from crypto_primitives_tpu_torch.ops.curve import te_add, te_neg, te_sum, te_to_affine
 from crypto_primitives_tpu_torch.ops.curve_sw import SWCurveSpec
 from crypto_primitives_tpu_torch.utils import profiling
@@ -46,8 +48,8 @@ from crypto_primitives_tpu_torch.utils import profiling
 __all__ = [
     "add", "affine_host", "combo_width", "conditional_sum_grouped_auto", "device_fixed_base", "device_table",
     "fixed_base_grouped_table", "fixed_base_mul", "fixed_base_powers", "fixed_base_sum", "grouped_operands",
-    "grouped_sum", "host_ints", "msm_many", "neg", "pack_combos", "pack_points", "pack_table_grouped",
-    "scalar_mul_bits_windowed", "scalars_to_bits", "subset_groups", "sum", "te_conditional_sum_grouped",
+    "grouped_sum", "host_ints", "msm_many", "neg", "pack_combos", "pack_points", "pack_points_device",
+    "pack_table_grouped", "scalar_mul_bits_windowed", "scalars_to_bits", "subset_groups", "sum", "te_conditional_sum_grouped",
     "te_fixed_base_mul", "te_scalar_mul_bits_windowed", "to_affine", "unpack_affine", "window_indices",
     "windowed_digits",
 ]
@@ -278,6 +280,24 @@ def pack_points(curve, pts) -> np.ndarray:
     points)."""
     with profiling.annotate("curve.pack", 1 if pts is None or isinstance(pts, tuple) else len(pts)):
         return curve.pack_points(pts)
+
+
+def pack_points_device(curve, pts, device) -> torch.Tensor:
+    """Host affine point(s) -> their extended Montgomery words on ``device``,
+    word for word what :func:`pack_points` gives: one (x, y) tuple gives
+    (4, W), a list (N, 4, W).  The host builds only the canonical (x, y)
+    words, ``int(v) % p`` each, by one bytes join (span ``curve.pack``,
+    ``rows``: the points); they are uploaded, and the Montgomery form, T and
+    Z are computed there (``ops.pack_kernel.te_pack``: one A4 launch on a
+    CUDA device, its plain version on the CPU)."""
+    single = isinstance(pts, tuple)
+    rows = [pts] if single else pts
+    p, nbytes = curve.base.p, 4 * curve.base.num_words
+    with profiling.annotate("curve.pack", len(rows)):
+        buf = bytearray().join((int(v) % p).to_bytes(nbytes, "little") for pt in rows for v in pt)
+        xy = np.frombuffer(buf, "<i4").reshape(len(rows), 2, curve.base.num_words)
+    out = pack_kernel.te_pack(curve, torch.from_numpy(xy).to(device))
+    return out[0] if single else out
 
 
 def host_ints(spec, words: torch.Tensor) -> list:

@@ -9,9 +9,9 @@ Edwards, kernel ``msm_te``) or ``curve_sw_fast`` (short Weierstrass, kernel
 ``conditional_sum_grouped_auto``, ``device_table``, ``msm_many``,
 ``fixed_base_grouped_table``, ``fixed_base_mul``,
 ``scalar_mul_bits_windowed``, ``scalars_to_bits``, ``pack_points``,
-``unpack_affine``, ``add``, ``neg``, ``sum`` and ``to_affine``.  Every known
-curve has a module here (the JAX package's ``rns_mod`` is not None for any of
-them); another curve model raises.
+``pack_points_device``, ``unpack_affine``, ``add``, ``neg``, ``sum`` and
+``to_affine``.  Every known curve has a module here (the JAX package's
+``rns_mod`` is not None for any of them); another curve model raises.
 """
 
 from crypto_primitives_tpu_torch.ops import curve_fast, curve_sw_fast

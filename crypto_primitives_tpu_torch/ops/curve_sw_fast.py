@@ -10,7 +10,9 @@ port's table and the JAX package's agree entry for entry, and so are
 the curve model.  The fixed-base product runs through kernel ``msm_sw`` at
 its build's row split; the windowed variable-base product is plain PyTorch.
 Host points are affine tuples, with ``None`` for the identity, which
-``pack_points`` takes and ``unpack_affine`` returns.
+``pack_points`` and ``pack_points_device`` take and ``unpack_affine``
+returns; ``pack_points_device`` is the host pack and its upload (the TE
+tier's device pack builds the extended form, which this tier does not use).
 """
 
 from __future__ import annotations
@@ -41,9 +43,9 @@ from crypto_primitives_tpu_torch.ops.curve_sw import sw_add, sw_add_digits, sw_n
 
 __all__ = [
     "add", "conditional_sum_grouped_auto", "device_table", "fixed_base_grouped_table", "fixed_base_mul",
-    "msm_many", "neg", "pack_combos", "pack_points", "pack_table_grouped", "scalar_mul_bits_windowed",
-    "scalars_to_bits", "subset_groups", "sum", "sw_conditional_sum_grouped", "sw_fixed_base_mul",
-    "sw_scalar_mul_bits_windowed", "to_affine", "unpack_affine", "window_indices",
+    "msm_many", "neg", "pack_combos", "pack_points", "pack_points_device", "pack_table_grouped",
+    "scalar_mul_bits_windowed", "scalars_to_bits", "subset_groups", "sum", "sw_conditional_sum_grouped",
+    "sw_fixed_base_mul", "sw_scalar_mul_bits_windowed", "to_affine", "unpack_affine", "window_indices",
 ]
 
 
@@ -89,6 +91,12 @@ def sw_scalar_mul_bits_windowed(curve, base: torch.Tensor, bits: torch.Tensor, w
     ident = curve._consts(base.device)["identity"]
     return ff.from_digits(windowed_digits(lambda a, b: sw_add_digits(curve, a, b), ident,
                                           ff.to_digits(base), bits, w))
+
+
+def pack_points_device(curve, pts, device) -> torch.Tensor:
+    """Host affine point(s), ``None`` for the identity -> their projective
+    words (:func:`pack_points`) on ``device``."""
+    return torch.from_numpy(pack_points(curve, pts)).to(device)
 
 
 def unpack_affine(curve, pts: torch.Tensor):

@@ -24,11 +24,11 @@ Span names start with their layer: ``tree.`` in the Merkle tree layer
 (``models/commitment/pedersen.py``), ``sig.`` in Schnorr's batch verify
 (``models/signature/schnorr.py``), ``curve.`` in the curve tier's moves
 between host and device (``ops/curve_fast.py``: ``pack_points``,
-``scalars_to_bits``, ``affine_host``, which ``ops/curve_sw_fast.py``
-shares), ``kernel.`` in
-the kernel wrappers (``ops/poseidon_kernel.py``, ``ops/sha256_kernel.py``,
+``pack_points_device``, ``scalars_to_bits``, ``affine_host``, which
+``ops/curve_sw_fast.py`` shares but the device pack), ``kernel.`` in the
+kernel wrappers (``ops/poseidon_kernel.py``, ``ops/sha256_kernel.py``,
 ``ops/msm_kernel.py``, ``ops/affine_kernel.py``, ``ops/add_kernel.py``,
-``ops/windowed_kernel.py``).  Records are kept for the thread that opens
+``ops/windowed_kernel.py``, ``ops/pack_kernel.py``).  Records are kept for the thread that opens
 spans; the program opens them from one thread.
 """
 

@@ -4,7 +4,8 @@ every curve they are built for (``msm_sw`` also at every row split it takes;
 both at the fixed-base shapes of 20 and 84-86 groups, and under
 ``msm_many``), and the field arithmetic they share (through the test-only
 field probe); the windowed product and the Schnorr and ElGamal batch entry
-points on CUDA tensors against the same on CPU tensors; ``msm_te`` on
+points on CUDA tensors against the same on CPU tensors; the keys' pack A4
+against the host pack on every twisted-Edwards curve; ``msm_te`` on
 Bowe-Hopwood's signed-digit table; Bowe-Hopwood, the injective-map
 compressors, the fold argument and the IPA prover on the card against the
 CPU; the sumcheck prover's CUDA graph against the eager prover; Blake2s
@@ -397,6 +398,36 @@ def test_windowed_mul_on_cuda_tensors_matches_cpu(cuda, name):
     bits = torch.from_numpy(mod.scalars_to_bits(curve, [rng.randrange(curve.scalar.p) for _ in range(300)]))
     got = mod.scalar_mul_bits_windowed(curve, base.to(cuda), bits.to(cuda))
     assert torch.equal(got.cpu(), mod.scalar_mul_bits_windowed(curve, base, bits))
+
+
+@pytest.mark.parametrize("name", ["JUBJUB", "ED_ON_BLS12_377", "ED25519"])
+def test_pack_kernel_equals_the_host_pack(cuda, name):
+    """A4 through ``pack_points_device`` gives the host pack's extended
+    Montgomery words bit for bit on 2^16 + 1 random coordinate pairs (the
+    arithmetic does not ask for curve points), the identity and coordinates
+    at 0, p - 1, p + v and -v among them, in one launch whose span carries
+    the points as ``rows``."""
+    import random
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from crypto_primitives_tpu_torch.ops import curve_fast, curves_known, pack_kernel
+    from crypto_primitives_tpu_torch.utils import profiling
+
+    curve = getattr(curves_known, name)
+    p = curve.base.p
+    rng = random.Random(61)
+    pts = [(rng.randrange(p), rng.randrange(p)) for _ in range((1 << 16) - 4)]
+    pts += [(0, 1), (p - 1, 0), (p + 12345, -(p - 1)), (-7, 2 * p + 3), (rng.randrange(p), p - 1)]
+    n0 = pack_kernel.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = curve_fast.pack_points_device(curve, pts, cuda)
+    assert pack_kernel.launches == n0 + 1
+    assert [(s.name, s.rows) for s in profiling.spans()] == [("curve.pack", len(pts)), ("kernel.pack", len(pts))]
+    assert got.shape == (len(pts), 4, curve.base.num_words) and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), torch.from_numpy(curve.pack_points(pts)))
+    assert torch.equal(curve_fast.pack_points_device(curve, pts[-4], cuda).cpu(),
+                       torch.from_numpy(curve.pack_points(pts[-4])))
 
 
 @pytest.mark.parametrize("name", ["ED_ON_BLS12_377", "BLS12_381_G1"])
@@ -1131,20 +1162,24 @@ _PATH_LAUNCHES = [
     ("pedersen.bowe_hopwood.ed377", {"msm_kernel": 1}),
     ("fold_argument", {"poseidon_kernel": None}),
     ("sumcheck_prove", {"poseidon_kernel": None}),
-    ("ipa_fold_prove", {"poseidon_kernel": None, "add_kernel": None, "windowed_kernel": None}),
+    ("ipa_fold_prove", {"poseidon_kernel": None, "add_kernel": None, "windowed_kernel": None, "pack_kernel": 1}),
     ("Blake2sPRF.evaluate_batch", {}),
 ]
 for _, _tag, _msm in _CURVES:
-    # the complete-addition and windowed-product kernels run on the TE curve; G1 runs both in plain torch
+    # the complete-addition, windowed-product and pack kernels run on the TE curve; G1 runs the first two in
+    # plain torch and packs on the host
     _add = int(_msm == "msm_kernel")
     _PATH_LAUNCHES += [
         (f"pedersen.crh.{_tag}", {_msm: 1, "affine_kernel": 1, "add_kernel": 0}),
         (f"pedersen.commitment.{_tag}", {_msm: 2, "affine_kernel": 1, "add_kernel": _add}),
-        *((f"schnorr.{op}.{_tag}", {_msm: None, "add_kernel": 0, "windowed_kernel": 0}) for op in ("keygen", "sign")),
-        (f"schnorr.verify.{_tag}", {_msm: None, "add_kernel": _add, "windowed_kernel": _add}),
-        (f"elgamal.encrypt.{_tag}", {_msm: None, "add_kernel": _add, "windowed_kernel": 0}),
-        (f"elgamal.encrypt_windowed.{_tag}", {_msm: None, "add_kernel": _add, "windowed_kernel": _add}),
-        (f"elgamal.decrypt.{_tag}", {_msm: 0, "affine_kernel": None, "add_kernel": _add, "windowed_kernel": _add}),
+        *((f"schnorr.{op}.{_tag}", {_msm: None, "add_kernel": 0, "windowed_kernel": 0, "pack_kernel": 0})
+          for op in ("keygen", "sign")),
+        (f"schnorr.verify.{_tag}", {_msm: None, "add_kernel": _add, "windowed_kernel": _add, "pack_kernel": _add}),
+        (f"elgamal.encrypt.{_tag}", {_msm: None, "add_kernel": _add, "windowed_kernel": 0, "pack_kernel": _add}),
+        (f"elgamal.encrypt_windowed.{_tag}",
+         {_msm: None, "add_kernel": _add, "windowed_kernel": _add, "pack_kernel": _add}),
+        (f"elgamal.decrypt.{_tag}",
+         {_msm: 0, "affine_kernel": None, "add_kernel": _add, "windowed_kernel": _add, "pack_kernel": _add}),
     ]
 
 
@@ -1154,12 +1189,20 @@ def test_path_launches_its_kernels(cuda, path, needs):
     from the wrappers' ``launches`` counters around the call.  decrypt_batch
     (windowed products, as in the JAX package) launches no MSM kernel, only
     the affine step, the addition and, on a TE curve, the windowed product;
-    Blake2s launches no kernel at all."""
-    from crypto_primitives_tpu_torch.ops import add_kernel, affine_kernel, msm_kernel, msm_sw_kernel, windowed_kernel
+    on a TE curve each Schnorr verify, ElGamal batch and IPA fold packs its
+    host points in one launch of A4; Blake2s launches no kernel at all."""
+    from crypto_primitives_tpu_torch.ops import (
+        add_kernel,
+        affine_kernel,
+        msm_kernel,
+        msm_sw_kernel,
+        pack_kernel,
+        windowed_kernel,
+    )
 
     wrappers = {"poseidon_kernel": poseidon_kernel, "sha256_kernel": sha256_kernel, "msm_kernel": msm_kernel,
                 "msm_sw_kernel": msm_sw_kernel, "affine_kernel": affine_kernel, "add_kernel": add_kernel,
-                "windowed_kernel": windowed_kernel}
+                "windowed_kernel": windowed_kernel, "pack_kernel": pack_kernel}
     run = _PATHS[path](cuda)
     before = {name: mod.launches for name, mod in wrappers.items()}
     run()

@@ -160,14 +160,14 @@ def test_spans_of_a_verify(pool):
                                           "sig.affine", "sig.challenge"]
     assert all(c.rows is None for c in children)
     inner = {c.name: [(s.name, s.rows) for s in spans if s.parent == c.id] for c in children}
-    assert inner == {"sig.bits": [("curve.bits", B), ("curve.bits", B)], "sig.pack": [("curve.pack", B)],
-                     "sig.fixed": [("kernel.k4", B)],
-                     # the plain product, addition and affine step give no rows
+    assert inner == {"sig.bits": [("curve.bits", B), ("curve.bits", B)],
+                     "sig.pack": [("curve.pack", B), ("kernel.pack", None)], "sig.fixed": [("kernel.k4", B)],
+                     # the plain pack, product, addition and affine step give no rows
                      "sig.windowed": [("kernel.windowed", None)], "sig.add": [("kernel.add", None)],
                      "sig.affine": [("kernel.affine", None), ("curve.to_host", B), ("curve.host_ints", B)],
                      "sig.challenge": [("sig.serialize", B), ("sig.digest", B), ("sig.to_scalar", B)]}
-    # nothing below those: the root, its 7 stages and the 12 spans inside them
-    assert len(spans) == 1 + 7 + 12 and "curve.windowed" not in {s.name for s in spans}
+    # nothing below those: the root, its 7 stages and the 13 spans inside them
+    assert len(spans) == 1 + 7 + 13 and "curve.windowed" not in {s.name for s in spans}
     assert out == scheme.verify_batch(params, pks[:B], messages[:B], sigs[:B], device="cpu")
 
 
@@ -271,7 +271,8 @@ STAGES = {"sig_pack_ms": ("curve.pack",), "sig_bits_ms": ("curve.bits",), "sig_u
           "sig_wait_ms": ("curve.to_host",), "sig_digest_ms": ("sig.digest",),
           "sig_encode_ms": ("sig.serialize", "sig.to_scalar")}
 # a verify job's span tree, as ``verify_batch`` opens it: (stage, the spans inside it)
-JOB = [("sig.bits", ("curve.bits", "curve.bits")), ("sig.pack", ("curve.pack",)), ("sig.fixed", ("kernel.k4",)),
+JOB = [("sig.bits", ("curve.bits", "curve.bits")), ("sig.pack", ("curve.pack", "kernel.pack")),
+       ("sig.fixed", ("kernel.k4",)),
        ("sig.windowed", ("kernel.windowed",)), ("sig.add", ("kernel.add",)),
        ("sig.affine", ("kernel.affine", "curve.to_host", "curve.host_ints")),
        ("sig.challenge", ("sig.serialize", "sig.digest", "sig.to_scalar"))]
